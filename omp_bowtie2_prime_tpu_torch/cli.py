@@ -2,13 +2,15 @@
 
     python -m omp_bowtie2_prime_tpu_torch.cli build genome.fa idx.npz
     python -m omp_bowtie2_prime_tpu_torch.cli align -x idx.npz -U reads.fq \\
-        -S out.sam [--device cuda] [--seed N] [-p 1] [--batch N] [-t]
+        -S out.sam [--local] [--ma N] [--very-fast-local | --fast-local |
+        --sensitive-local | --very-sensitive-local] [--device cuda]
+        [--seed N] [-p 1] [--batch N] [-t]
 
-The same commands and defaults as omp_bowtie2_prime_tpu.cli for the
-unpaired end-to-end slice; the index files are interchangeable. Any other
-option of the JAX package's CLI is refused with the ROADMAP.md item that
-will bring it. ``--device`` names the torch device (default ``cuda``);
-nothing falls back to another device.
+The same commands and defaults as omp_bowtie2_prime_tpu.cli for unpaired
+reads, end to end or (``--local``) with soft clipping; the index files
+are interchangeable. Any other option of the JAX package's CLI is refused
+with the ROADMAP.md item that will bring it. ``--device`` names the torch
+device (default ``cuda``); nothing falls back to another device.
 """
 
 from __future__ import annotations
@@ -20,8 +22,6 @@ import time
 # options of the JAX package's CLI that the port does not take yet,
 # grouped by the ROADMAP.md port-queue item that brings them
 _LATER = {
-    "K2 and --local": ("--local", "--ma", "--very-fast-local", "--fast-local",
-                       "--sensitive-local", "--very-sensitive-local"),
     "paired-end": ("-1", "-2", "--interleaved", "--tab5", "--tab6", "--12",
                    "-I", "-X", "--minins", "--maxins", "--fr", "--rf", "--ff",
                    "--no-mixed", "--no-discordant", "--dovetail",
@@ -79,13 +79,12 @@ def cmd_build(args):
 def run_align(args):
     """Align args.reads against args.index into args.sam; returns the
     TorchAligner (its timers and metrics hold the run's profile)."""
-    from omp_bowtie2_prime_tpu.io.fastq import batch_iterator, open_reads
-    from omp_bowtie2_prime_tpu.io.sam import SamWriter
-    from omp_bowtie2_prime_tpu.utils.metrics import PhaseTimers
-    from omp_bowtie2_prime_tpu.utils.presets import DEFAULT_PRESET, PRESETS
-    from omp_bowtie2_prime_tpu.utils.scoring import Scoring
-
+    from .io.fastq import batch_iterator, open_reads
+    from .io.sam import SamWriter
     from .models.aligner import AlignOpts, TorchAligner
+    from .utils.metrics import PhaseTimers
+    from .utils.presets import DEFAULT_PRESET, PRESETS, PRESETS_LOCAL
+    from .utils.scoring import Scoring, SimpleFunc
 
     if args.threads != 1:
         raise SystemExit("error: -p 2 is not ported yet (ROADMAP.md, port "
@@ -93,12 +92,24 @@ def run_align(args):
     timers = PhaseTimers()
     with timers.phase("loadIndex"):
         fm = _load_index(args.index)
-        preset = PRESETS[DEFAULT_PRESET]
+        # a -local preset implies --local; --local alone takes the
+        # sensitive-local preset, --score-min G,20,8 and match bonus 2
+        local = args.local or args.preset_local is not None
+        sc_kwargs = {}
+        if local:
+            preset = PRESETS_LOCAL[args.preset_local or "sensitive-local"]
+            sc_kwargs["score_min"] = SimpleFunc.parse("G,20,8")
+        else:
+            preset = PRESETS[DEFAULT_PRESET]
+        if args.ma is not None:
+            sc_kwargs["match_bonus"] = args.ma
+        elif local:
+            sc_kwargs["match_bonus"] = 2
         opts = AlignOpts(seed_len=preset.seed_len, ival=preset.ival,
                          nrounds=preset.nrounds, dps=preset.dps,
-                         rng_seed=args.seed)
-        aligner = TorchAligner(fm, Scoring(), opts, device=args.device,
-                               timers=timers)
+                         rng_seed=args.seed, local=local)
+        aligner = TorchAligner(fm, Scoring(**sc_kwargs), opts,
+                               device=args.device, timers=timers)
     out = open(args.sam, "w") if args.sam != "-" else sys.stdout
     w = SamWriter(out, fm.refmap.refnames, fm.refmap.reflens,
                   prog_args=" ".join(sys.argv))
@@ -145,6 +156,13 @@ def main(argv=None):
     a.add_argument("-x", "--index", required=True)
     a.add_argument("-U", "--reads", required=True)
     a.add_argument("-S", "--sam", default="-")
+    a.add_argument("--local", action="store_true", default=False,
+                   help="soft-clipping local alignment")
+    for name in ("very-fast", "fast", "sensitive", "very-sensitive"):
+        a.add_argument(f"--{name}-local", dest="preset_local",
+                       action="store_const", const=f"{name}-local")
+    a.add_argument("--ma", type=int, default=None,
+                   help="match bonus (local default 2, end-to-end 0)")
     a.add_argument("--seed", type=int, default=0)
     a.add_argument("-p", "--threads", type=int, default=1)
     a.add_argument("--batch", type=int, default=8192)

@@ -11,7 +11,7 @@
 //
 // What bounds it: integer ALU work and shared memory. A problem reads
 // about 0.7 KB (read, penalties, window) and writes under 0.2 KB, while
-// it does ~L*C cells of a dozen integer operations each plus a warp scan
+// it does ~L*C cells of about 30 integer operations each plus a warp scan
 // per row, and its trace (4 bits per cell, L*C/2 bytes) must live
 // somewhere until the walk reads it back.
 //

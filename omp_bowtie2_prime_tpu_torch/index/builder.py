@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from omp_bowtie2_prime_tpu.utils import dna
-from omp_bowtie2_prime_tpu.utils.suffix_array import bwt_from_sa, suffix_array
+from ..utils import dna
+from ..utils.suffix_array import bwt_from_sa, suffix_array
 
 from .fasta import join_references, parse_fasta
 from .format import FMIndex, MARK_WORDS_PER_BLOCK, OCC_BLOCK

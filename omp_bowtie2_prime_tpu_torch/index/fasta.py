@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from omp_bowtie2_prime_tpu.utils import dna
+from ..utils import dna
 
 
 @dataclass

@@ -1,9 +1,11 @@
 """Build the package's CUDA kernels with nvcc at first use.
 
-Every ``csrc/*.cu`` source is compiled for ``sm_90a`` into one shared
-library with a plain C interface, under ``_build/`` beside the package
-(git-ignored). The library's name carries a hash of the sources and the
-flags, so an edited source triggers a rebuild. A failed build raises
+Every ``csrc/*.cu`` source is compiled for ``sm_90a`` (one nvcc per
+source, all started together) and linked into one shared library with a
+plain C interface, under ``_build/`` beside the package (git-ignored).
+The library's name carries a hash of the sources and the flags, so an
+edited source triggers a rebuild; ptxas' report of registers, shared
+memory and spills is kept beside it (``.log``). A failed build raises
 with nvcc's stderr: there is no fallback.
 """
 
@@ -21,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -52,14 +54,39 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}"
-        )
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report = []
+    failed = None
+    for cmd, _obj, proc in jobs:  # wait for all, so none outlives a failure
+        _out, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, err)
+    objs = [obj for _cmd, obj, _proc in jobs]
+    try:
+        if failed is None:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so",
+                   *objs]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                failed = (r.returncode, cmd, r.stderr)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    if failed is not None:
+        rc, cmd, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+    with open(f"{path}.log", "w") as f:
+        f.write("".join(report))
+    os.replace(f"{tmp}.so", path)
     return path
 
 
@@ -73,6 +100,10 @@ def get_lib() -> ctypes.CDLL:
             lib.sw_e2e_backtrace_launch.restype = I
             lib.sw_e2e_backtrace_launch.argtypes = (
                 [P] * 5 + [I] * 3 + [I] * 6 + [P] * 4 + [I, P]
+            )
+            lib.sw_local_backtrace_launch.restype = I
+            lib.sw_local_backtrace_launch.argtypes = (
+                [P] * 5 + [I] * 3 + [I] * 7 + [P] * 2 + [I, P]
             )
             _lib = lib
         return _lib

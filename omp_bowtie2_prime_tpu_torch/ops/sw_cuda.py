@@ -1,10 +1,14 @@
-"""Wrapper of the hand-written Hopper DP kernel (csrc/sw_e2e.cu).
+"""Wrappers of the hand-written Hopper DP kernels (csrc/sw_e2e.cu,
+csrc/sw_local.cu).
 
 ``sw_e2e_backtrace`` returns what the JAX package's
 ``sw.sw_e2e_backtrace_batch`` returns: (best, bestcol, packed ops,
-start col). On CUDA tensors it launches the kernel on the current stream
-(or raises); on CPU tensors it runs the plain version in ops/sw.py.
-``LAUNCHES`` counts kernel launches.
+start col). ``sw_local_backtrace`` returns what its
+``sw.sw_local_backtrace_batch`` returns: (best, bestrow, bestcol, packed
+ops, start col, start row). On CUDA tensors each launches its kernel on
+the current stream (or raises); on CPU tensors it runs the plain version
+in ops/sw.py. ``LAUNCHES`` counts the launches of the end-to-end kernel,
+``LAUNCHES_LOCAL`` those of the local one.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import torch
 from . import sw
 
 LAUNCHES = 0
-L_MAX = 160  # longest read the kernel takes (the aligner's l_max)
+LAUNCHES_LOCAL = 0
+L_MAX = 160  # longest read the kernels take (the aligner's l_max)
 C_MAX = 257  # widest DP (window + column 0) the main path sends
 
 
@@ -27,11 +32,8 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: not contiguous")
 
 
-def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
-    """reads int8 [B, L], pens int32 [B, L], rdlens int32 [B], refs int8
-    [B, W], wlens int32 [B] -> (best int32 [B], bestcol int32 [B], ops
-    uint8 [B, ceil((L+W+1)/4)], start_col int32 [B])."""
-    global LAUNCHES
+def _check_problem(reads, pens, rdlens, refs, wlens) -> torch.device:
+    """Validate one batch of DP inputs; returns the device they share."""
     B, L = reads.shape
     W = refs.shape[1]
     _check("reads", reads, torch.int8, (B, L))
@@ -48,12 +50,23 @@ def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     dev = reads.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
+    """reads int8 [B, L], pens int32 [B, L], rdlens int32 [B], refs int8
+    [B, W], wlens int32 [B] -> (best int32 [B], bestcol int32 [B], ops
+    uint8 [B, ceil((L+W+1)/4)], start_col int32 [B])."""
+    global LAUNCHES
+    dev = _check_problem(reads, pens, rdlens, refs, wlens)
     if dev.type == "cpu":
         return sw.sw_e2e_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     from ._build import get_lib
 
+    B, L = reads.shape
+    W = refs.shape[1]
     nops = -(-(L + W + 1) // 4)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     bestcol = torch.empty(B, dtype=torch.int32, device=dev)
@@ -75,3 +88,35 @@ def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
         raise RuntimeError(f"sw_e2e kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return best, bestcol, ops, startcol
+
+
+def sw_local_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
+    """Inputs as sw_e2e_backtrace -> (best, bestrow, bestcol int32 [B],
+    ops uint8 [B, ceil((L+W+1)/4)], start_col, start_row int32 [B])."""
+    global LAUNCHES_LOCAL
+    dev = _check_problem(reads, pens, rdlens, refs, wlens)
+    if dev.type == "cpu":
+        return sw.sw_local_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
+    from ._build import get_lib
+
+    B, L = reads.shape
+    W = refs.shape[1]
+    nops = -(-(L + W + 1) // 4)
+    # rows: best, bestrow, bestcol, start_col, start_row
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    ops = torch.empty((B, nops), dtype=torch.uint8, device=dev)
+    if B > 0:
+        lib = get_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.sw_local_backtrace_launch(
+                reads.data_ptr(), pens.data_ptr(), rdlens.data_ptr(),
+                refs.data_ptr(), wlens.data_ptr(), B, L, W,
+                p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar,
+                p.ma, out.data_ptr(), ops.data_ptr(), nops, stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"sw_local kernel launch failed: cudaError {err}")
+        LAUNCHES_LOCAL += 1
+    return out[0], out[1], out[2], ops, out[3], out[4]

@@ -1,6 +1,6 @@
-"""The hand-written Hopper DP kernel against its plain PyTorch version, on
-the card. The kernel has no CPU mode: these tests skip without a CUDA
-device. The file imports no JAX, so it runs where JAX is absent:
+"""The hand-written Hopper DP kernels (end-to-end and local) against their
+plain PyTorch versions, on the card. The kernels have no CPU mode: these
+tests skip without a CUDA device. The file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -61,6 +61,54 @@ def test_kernel_nondefault_penalties(cuda):
     args = [a.to(cuda) for a in _problems(9, 300, 160, 200)]
     want = sw.sw_e2e_backtrace_plain(*args, p)
     got = sw_cuda.sw_e2e_backtrace(*args, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _local_problems(seed, B, L, W):
+    """As _problems, with the held piece of the read between random
+    flanks (soft clips), plus homopolymer lanes (ties) and all-N reads."""
+    reads, pens, rdlens, refs, wlens = (a.numpy().copy() for a in
+                                        _problems(seed, B, L, W))
+    rng = np.random.default_rng(seed + 1)
+    for b in range(0, B, 3):
+        n = int(min(rdlens[b], W - 4))
+        cut = n // 4
+        reads[b, :cut] = rng.integers(0, 4, cut)
+    for b in range(1, B, 16):
+        reads[b] = b % 4
+        refs[b] = b % 4
+    reads[2::32] = 4
+    return [torch.from_numpy(a) for a in (reads, pens, rdlens, refs, wlens)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W", [(600, 160, 200), (600, 160, 224),
+                                   (600, 160, 256), (601, 100, 96),
+                                   (5, 40, 30), (3, 160, 200)])
+def test_local_kernel_matches_plain(cuda, B, L, W):
+    p = sw.SWParams(ma=2)
+    args = [a.to(cuda) for a in _local_problems(L + W, B, L, W)]
+    want = sw.sw_local_backtrace_plain(*args, p)
+    n0 = sw_cuda.LAUNCHES_LOCAL
+    got = sw_cuda.sw_local_backtrace(*args, p)
+    torch.cuda.synchronize()
+    assert sw_cuda.LAUNCHES_LOCAL == n0 + 1
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(ma=0), dict(ma=3, rdg_open=11, rdg_ext=2, rfg_open=6, rfg_ext=4),
+    dict(ma=2, gbar=90), dict(ma=2, npen=3, gbar=2)])
+def test_local_kernel_nondefault_penalties(cuda, kw):
+    p = sw.SWParams(**kw)
+    args = [a.to(cuda) for a in _local_problems(9, 300, 160, 200)]
+    want = sw.sw_local_backtrace_plain(*args, p)
+    got = sw_cuda.sw_local_backtrace(*args, p)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

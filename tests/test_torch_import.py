@@ -1,7 +1,9 @@
-"""The port imports and aligns with jax and flax blocked: nothing on its
-path may import them (the machine with the card has neither)."""
+"""The port stands alone: it imports and aligns, end to end and in local
+mode, with jax, flax and the whole JAX package blocked, and no source
+file of it names that package in an import."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -11,14 +13,17 @@ _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["omp_bowtie2_prime_tpu"] = None
 import numpy as np
 import omp_bowtie2_prime_tpu_torch
 from omp_bowtie2_prime_tpu_torch import cli
 from omp_bowtie2_prime_tpu_torch.index.builder import build_index_from_text
 from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
-from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
-from omp_bowtie2_prime_tpu.io.fastq import Read
-from omp_bowtie2_prime_tpu.utils import dna
+from omp_bowtie2_prime_tpu_torch.io.fastq import Read
+from omp_bowtie2_prime_tpu_torch.models.aligner import AlignOpts, TorchAligner
+from omp_bowtie2_prime_tpu_torch.utils import dna
+from omp_bowtie2_prime_tpu_torch.utils.presets import PRESETS_LOCAL
+from omp_bowtie2_prime_tpu_torch.utils.scoring import Scoring, SimpleFunc
 
 rng = np.random.default_rng(5)
 text = rng.integers(0, 4, 30000).astype(np.int8)
@@ -33,9 +38,28 @@ for i in range(50):
 res = TorchAligner(fm, device="cpu").align_batch(reads)
 ok = sum(r.status == "aligned" for r in res)
 assert ok == 50, ok
-assert not any(m == "jax" or m.startswith(("jax.", "flax"))
-               for m in sys.modules if sys.modules[m] is not None)
 print("ALIGNED", ok)
+
+flanked = []
+for rd in reads:
+    s = rd.seq.copy()
+    s[:15] = rng.integers(0, 4, 15)
+    flanked.append(Read(rd.rdid, rd.name, s, rd.qual))
+pl = PRESETS_LOCAL["sensitive-local"]
+al = TorchAligner(
+    fm, Scoring(match_bonus=2, score_min=SimpleFunc.parse("G,20,8")),
+    AlignOpts(local=True, seed_len=pl.seed_len, ival=pl.ival,
+              nrounds=pl.nrounds, dps=pl.dps), device="cpu")
+res = al.align_batch(flanked)
+ok = sum(r.status == "aligned" and "S" in r.cigar_str for r in res)
+assert ok >= 45, ok
+print("LOCAL", len(res))
+
+loaded = [m for m in sys.modules if sys.modules[m] is not None and (
+    m == "jax" or m.startswith(("jax.", "flax"))
+    or m == "omp_bowtie2_prime_tpu"
+    or m.startswith("omp_bowtie2_prime_tpu."))]
+assert not loaded, loaded
 """
 
 
@@ -45,3 +69,23 @@ def test_port_runs_without_jax_and_flax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ALIGNED 50" in r.stdout
+    assert "LOCAL 50" in r.stdout
+
+
+def test_no_source_imports_the_jax_package():
+    """Every .py of the port, and chip_smoke.py: no ``import`` / ``from``
+    of jax, flax or omp_bowtie2_prime_tpu (other than the port itself)."""
+    pat = re.compile(
+        r"^\s*(?:from|import)\s+(?:jax|flax|omp_bowtie2_prime_tpu)(?![\w])",
+        re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, names in os.walk(
+            os.path.join(ROOT, "omp_bowtie2_prime_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            for m in pat.finditer(f.read()):
+                bad.append((os.path.relpath(path, ROOT), m.group(0).strip()))
+    assert not bad, bad
