@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--sass]
 
 Drives the port's two main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
 ``align -U`` end to end and ``align -U --local``) at a real size: a
@@ -13,7 +13,8 @@ the seconds since the start:
   2. the build of every CUDA kernel from the checkout's sources, and of
      the native host library (CIGAR/MD finisher, SA-IS);
   3. each kernel (K1 end-to-end DP, K2 local DP) against its plain PyTorch
-     version on the card, at the main path's shapes (exact equality: all
+     version on the card, at the main path's shapes, at the widest window
+     the wrappers take and on degenerate lanes (exact equality: all
      outputs are integers), with both times and the kernel's bound;
   4. the data, made with numpy from a seed, and the port's index build
      (one index serves both paths);
@@ -25,13 +26,15 @@ the seconds since the start:
      random flank, with K2's launch count and the soft-clip checks.
 
 ``--profile`` adds one run of each path under torch.profiler and prints
-the device's busy share and the kernels' time by name.
+the device's busy share and the kernels' time by name. ``--sass`` adds to
+phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
 
 Then one JSON line describing the kernels and, last, the result line.
 Exits non-zero, printing no result, on any failure, without a CUDA
 device, or without the package beside it. Imports no JAX.
 """
 
+import collections
 import json
 import os
 import re
@@ -54,11 +57,14 @@ GENOME_BP = 4_600_000
 N_READS = {"e2e": 50_000, "local": 100_000}
 N_CPU_READS = 2_000
 # The card's rates for the bounds. Device memory: 3.35 TB/s. Integer
-# add/max/compare outside the tensor cores: a quarter of the 67 TFLOP/s
-# float32 rate (an SM has 64 int32 lanes beside 128 float32 lanes, and an
-# FMA counts as two operations where these count as one).
+# add/max/compare outside the tensor cores: half of the 67 TFLOP/s float32
+# rate. An SM has 64 int32 lanes beside 128 float32 lanes, and Hopper's
+# fused integer instructions (max(a + b, c), max(a, b, c)) do two of the
+# recurrence's operations in one, as an FMA does two of the float32 rate's.
+# One operation a lane a clock (16.75e12) is no bound: a kernel that uses
+# those instructions runs faster than it allows.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 2
 KERNELS = {
     "K1": dict(
         name="sw_e2e_backtrace", route="cuda",
@@ -66,9 +72,11 @@ KERNELS = {
         replaces="omp_bowtie2_prime_tpu/ops/sw_pallas.py:160",
         wrapper=sw_cuda.sw_e2e_backtrace, plain=sw.sw_e2e_backtrace_plain,
         params=sw.SWParams(), nout=4,
-        # integer operations per DP cell, counted in sw_e2e_kernel's row
-        # loop: score select 3, up 2, f 3, diagonal 1, h_open 1, running
-        # max 2, e 5, h 2, read-gap-open bit 3, trace nibble 8
+        # integer operations per DP cell of the recurrence as the
+        # reference states it (not the instructions of the kernel's
+        # source, which fuses and hoists some): score select 3, up 2, f 3,
+        # diagonal 1, h_open 1, running max 2, e 5, h 2, read-gap-open
+        # bit 3, trace nibble 8
         ops_per_cell=30,
     ),
     "K2": dict(
@@ -99,11 +107,13 @@ def log(msg):
     print(f"{time.perf_counter() - _T0:7.1f}s {msg}", flush=True)
 
 
-def dp_problems(rng, B, L, W, ragged=False, flanks=False):
+def dp_problems(rng, B, L, W, ragged=False, flanks=False, degenerate=False):
     """DP inputs as the main path builds them: reads with 2..6 qual
     penalties, windows holding the read at an offset (with mismatches)
     for most lanes, random windows for the rest. ``flanks`` replaces up
-    to 30 bases at the read's ends by random ones (local mode's clips)."""
+    to 30 bases at the read's ends by random ones (local mode's clips).
+    ``degenerate`` gives every eighth lane a read of length 0 and the
+    lane after it a window of length 0."""
     rdlens = (rng.integers(1, L + 1, B) if ragged
               else rng.choice([100, 150], B)).astype(np.int32)
     reads = np.full((B, L), 4, np.int8)
@@ -124,6 +134,9 @@ def dp_problems(rng, B, L, W, ragged=False, flanks=False):
             reads[b, :k] = rng.integers(0, 4, k)
             reads[b, n - k : n] = rng.integers(0, 4, k)
         wlens[b] = int(rng.integers(min(n, W), W + 1))
+    if degenerate:
+        rdlens[::8] = 0
+        wlens[1::8] = 0
     return [torch.from_numpy(a).cuda() for a in
             (reads, pens, rdlens, refs, wlens)]
 
@@ -179,14 +192,19 @@ def dp_bound(args, nout_words, ops_per_cell):
 
 def check_kernel(tag, rng):
     """Phase 3: one kernel against its plain version, bit for bit, at the
-    main path's shapes. Returns the kernel's entry of the kernels line
-    (times and bound at the narrow shape), launches still to fill in."""
+    main path's shapes, the widest window the wrappers take (C=257, the
+    widest strip a lane holds) and lanes with an empty read or window.
+    Returns the kernel's entry of the kernels line (times and bound at
+    the narrow shape), launches still to fill in."""
     k = KERNELS[tag]
     p, wrapper, plain = k["params"], k["wrapper"], k["plain"]
     local = tag == "K2"
     shapes = [("narrow", 8192, 200, dict(flanks=local)),
               ("escalation", 512, 224, dict(flanks=local)),
-              ("ragged", 2048, 200, dict(ragged=True))]
+              ("ragged", 2048, 200, dict(ragged=True)),
+              ("widest", 512, sw_cuda.C_MAX - 1, dict(flanks=local)),
+              ("degenerate", 1024, 200,
+               dict(ragged=True, degenerate=True))]
     if local:
         shapes.append(("ties+allN", 1024, 200, None))
     entry = None
@@ -220,6 +238,35 @@ def check_kernel(tag, rng):
                 library_ms=None)
     entry["max_abs_err"] = worst
     return entry
+
+
+def sass_row(lib, strip):
+    """--sass: the instructions of one DP row (the innermost loop that
+    holds the scan's SHFL.UP) of both kernels' instance for this strip
+    width, by opcode, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for func in text.split("Function : ")[1:]:
+        m = re.match(rf"\S*sw_dp_kernelILi{strip}ELb(\d)E", func)
+        if not m:
+            continue
+        ins = [(int(a, 16), t) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,5})\*/\s+(.*?)\s*;", func)]
+        loops = []
+        for addr, t in ins:
+            back = re.search(r"\bBRA\b.*0x([0-9a-f]+)", t)
+            if back and int(back.group(1), 16) < addr:
+                body = [u for a, u in ins if int(back.group(1), 16) <= a <= addr]
+                if any("SHFL.UP" in u for u in body):
+                    loops.append(body)
+        body = min(loops, key=len)
+        mix = collections.Counter(
+            re.sub(r"^@!?U?P\d+\s+", "", u).split()[0].split(".")[0]
+            for u in body)
+        log(f"[2]   {'K2' if m.group(1) == '1' else 'K1'} S={strip}: one row "
+            f"is {len(body)} instructions: "
+            + ", ".join(f"{op} {n}" for op, n in mix.most_common()))
 
 
 def simulate_read(rng, text, ln, flank_left=0, flank_right=0):
@@ -348,7 +395,7 @@ def profile_run(idx, fq, sam, local, untraced_wall):
     for us, key, count in rows[:8]:
         log(f"[P]   {us / 1e3:9.1f} ms  x{count:<6d} {key[:90]}")
     for us, key, count in rows:
-        if "sw_e2e_kernel" in key or "sw_local_kernel" in key:
+        if "sw_dp_kernel" in key:
             log(f"[P]   DP kernel {key[:40]}: {us / 1e3:.1f} ms in {count} "
                 f"launches = {100 * us / 1e3 / dev_ms:.1f}% of device time")
 
@@ -453,9 +500,16 @@ def main():
         f"{[os.path.basename(s) for s in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     with open(lib + ".log") as f:
-        for line in f.read().splitlines():
-            if "entry function" in line or "registers" in line:
-                log(f"[2]   {line.strip()[:110]}")
+        report = f.read()
+    # ptxas' report: one instance per strip width S and mode
+    for strip, local, spill, regs in re.findall(
+            r"sw_dp_kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill stores"
+            r".*?Used (\d+) registers", report, re.S):
+        log(f"[2]   {'K2' if local == '1' else 'K1'} S={strip}: {regs} "
+            f"registers, {spill} bytes spilled, no shared memory, "
+            f"{min(64, 65536 // (32 * -(-int(regs) // 8) * 8))} warps an SM")
+    if "--sass" in sys.argv[1:]:
+        sass_row(lib, -(-201 // 32))  # the narrow shape's strip width
     if native.get_lib() is None:
         raise AssertionError("the native host library did not build (g++)")
     log("[2] build: native host library (csrc/btcore.cpp, g++)")

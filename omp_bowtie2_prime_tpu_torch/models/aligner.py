@@ -597,16 +597,19 @@ class TorchAligner:
                 if local:
                     b, brow, bc, ops, stc, srow = sw_cuda.sw_local_backtrace(
                         reads, pens, d_rl, refs, d_wl, self.swp)
+                    small = torch.stack([b, bc, stc, brow, srow])
                 else:
                     b, bc, ops, stc = sw_cuda.sw_e2e_backtrace(
                         reads, pens, d_rl, refs, d_wl, self.swp)
+                    small = torch.stack([b, bc, stc])
             with self.timers.phase("dp.wait"):
-                best[lo:hi] = b.cpu().numpy()
-                bestcol[lo:hi] = bc.cpu().numpy()
-                startcols[lo:hi] = stc.cpu().numpy()
+                small = small.cpu().numpy()  # one copy for the [B] results
+                best[lo:hi] = small[0]
+                bestcol[lo:hi] = small[1]
+                startcols[lo:hi] = small[2]
                 if local:
-                    rows[0][lo:hi] = brow.cpu().numpy()  # trailing clip
-                    rows[1][lo:hi] = srow.cpu().numpy()  # leading clip
+                    rows[0][lo:hi] = small[3]  # trailing clip
+                    rows[1][lo:hi] = small[4]  # leading clip
                 opsp = ops.cpu().numpy()
             with self.timers.phase("dp.unpack"):
                 ops_all[lo:hi] = self._ops_rows(opsp)

@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` source is compiled for ``sm_90a`` (one nvcc per
 source, all started together) and linked into one shared library with a
 plain C interface, under ``_build/`` beside the package (git-ignored).
-The library's name carries a hash of the sources and the flags, so an
-edited source triggers a rebuild; ptxas' report of registers, shared
-memory and spills is kept beside it (``.log``). A failed build raises
-with nvcc's stderr: there is no fallback.
+The library's name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edit triggers a rebuild; ptxas'
+report of registers, shared memory and spills is kept beside it
+(``.log``). A failed build raises with nvcc's stderr: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources():
+    for s in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libbt2kernels_{h.hexdigest()[:16]}.so")
@@ -96,14 +97,16 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            P, I = ctypes.c_void_p, ctypes.c_int
+            P, I, Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            # inputs, (B, L, W), penalties, out, ops, nops_bytes, trace
+            # scratch and its size, stream
             lib.sw_e2e_backtrace_launch.restype = I
             lib.sw_e2e_backtrace_launch.argtypes = (
-                [P] * 5 + [I] * 3 + [I] * 6 + [P] * 4 + [I, P]
+                [P] * 5 + [I] * 3 + [I] * 6 + [P, P, I, P, Z, P]
             )
             lib.sw_local_backtrace_launch.restype = I
             lib.sw_local_backtrace_launch.argtypes = (
-                [P] * 5 + [I] * 3 + [I] * 7 + [P] * 2 + [I, P]
+                [P] * 5 + [I] * 3 + [I] * 7 + [P, P, I, P, Z, P]
             )
             _lib = lib
         return _lib

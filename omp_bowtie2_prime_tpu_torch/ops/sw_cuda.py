@@ -9,6 +9,11 @@ ops, start col, start row). On CUDA tensors each launches its kernel on
 the current stream (or raises); on CPU tensors it runs the plain version
 in ops/sw.py. ``LAUNCHES`` counts the launches of the end-to-end kernel,
 ``LAUNCHES_LOCAL`` those of the local one.
+
+A launch keeps its trace bits in a scratch tensor on the device, allocated
+here: ``trace_bytes`` says how large (at B=8192, L=160: 168 MB up to
+C=256 columns end to end and up to C=192 in local mode, 336 MB beyond).
+The aligner's ``DP_CHUNK`` bounds B.
 """
 
 from __future__ import annotations
@@ -55,68 +60,72 @@ def _check_problem(reads, pens, rdlens, refs, wlens) -> torch.device:
     return dev
 
 
+def trace_bytes(B: int, L: int, C: int, local: bool) -> int:
+    """Bytes of trace scratch one launch needs: every lane of a problem's
+    warp stores one 32-bit word a row, or two when its strip of
+    ceil(C / 32) columns has more trace bits (4 a cell, 5 in local mode)
+    than a word holds."""
+    strip = -(-C // 32)
+    words = 1 if (5 if local else 4) * strip <= 32 else 2
+    return B * L * 32 * 4 * words
+
+
+def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
+    """Allocate outputs and scratch and launch the library's ``name`` on
+    the current stream: (out int32 [5 if local else 3, B], ops uint8
+    [B, ceil((L+W+1)/4)], whether a kernel was launched)."""
+    from ._build import get_lib
+
+    dev = reads.device
+    B, L = reads.shape
+    W = refs.shape[1]
+    nops = -(-(L + W + 1) // 4)
+    out = torch.empty((5 if local else 3, B), dtype=torch.int32, device=dev)
+    ops = torch.empty((B, nops), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return out, ops, False
+    nbytes = trace_bytes(B, L, W + 1, local)
+    trace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = getattr(get_lib(), name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(reads.data_ptr(), pens.data_ptr(), rdlens.data_ptr(),
+                 refs.data_ptr(), wlens.data_ptr(), B, L, W, *pen_args,
+                 out.data_ptr(), ops.data_ptr(), nops, trace.data_ptr(),
+                 nbytes, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+    # the caching allocator hands the scratch to later work of this stream
+    # only, so freeing it here, before the kernel has run, is safe
+    return out, ops, True
+
+
 def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
     """reads int8 [B, L], pens int32 [B, L], rdlens int32 [B], refs int8
     [B, W], wlens int32 [B] -> (best int32 [B], bestcol int32 [B], ops
-    uint8 [B, ceil((L+W+1)/4)], start_col int32 [B])."""
+    uint8 [B, ceil((L+W+1)/4)], start_col int32 [B]). On the card the
+    three int32 results are rows of one [3, B] tensor."""
     global LAUNCHES
     dev = _check_problem(reads, pens, rdlens, refs, wlens)
     if dev.type == "cpu":
         return sw.sw_e2e_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
-    from ._build import get_lib
-
-    B, L = reads.shape
-    W = refs.shape[1]
-    nops = -(-(L + W + 1) // 4)
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    bestcol = torch.empty(B, dtype=torch.int32, device=dev)
-    ops = torch.empty((B, nops), dtype=torch.uint8, device=dev)
-    startcol = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return best, bestcol, ops, startcol
-    lib = get_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sw_e2e_backtrace_launch(
-            reads.data_ptr(), pens.data_ptr(), rdlens.data_ptr(),
-            refs.data_ptr(), wlens.data_ptr(), B, L, W,
-            p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar,
-            best.data_ptr(), bestcol.data_ptr(), ops.data_ptr(),
-            startcol.data_ptr(), nops, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sw_e2e kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return best, bestcol, ops, startcol
+    out, ops, launched = _launch(
+        "sw_e2e_backtrace_launch", False, reads, pens, rdlens, refs, wlens,
+        (p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar))
+    LAUNCHES += launched
+    return out[0], out[1], ops, out[2]
 
 
 def sw_local_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
     """Inputs as sw_e2e_backtrace -> (best, bestrow, bestcol int32 [B],
-    ops uint8 [B, ceil((L+W+1)/4)], start_col, start_row int32 [B])."""
+    ops uint8 [B, ceil((L+W+1)/4)], start_col, start_row int32 [B]). On
+    the card the five int32 results are rows of one [5, B] tensor."""
     global LAUNCHES_LOCAL
     dev = _check_problem(reads, pens, rdlens, refs, wlens)
     if dev.type == "cpu":
         return sw.sw_local_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
-    from ._build import get_lib
-
-    B, L = reads.shape
-    W = refs.shape[1]
-    nops = -(-(L + W + 1) // 4)
-    # rows: best, bestrow, bestcol, start_col, start_row
-    out = torch.empty((5, B), dtype=torch.int32, device=dev)
-    ops = torch.empty((B, nops), dtype=torch.uint8, device=dev)
-    if B > 0:
-        lib = get_lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.sw_local_backtrace_launch(
-                reads.data_ptr(), pens.data_ptr(), rdlens.data_ptr(),
-                refs.data_ptr(), wlens.data_ptr(), B, L, W,
-                p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar,
-                p.ma, out.data_ptr(), ops.data_ptr(), nops, stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"sw_local kernel launch failed: cudaError {err}")
-        LAUNCHES_LOCAL += 1
+    out, ops, launched = _launch(
+        "sw_local_backtrace_launch", True, reads, pens, rdlens, refs, wlens,
+        (p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar, p.ma))
+    LAUNCHES_LOCAL += launched
     return out[0], out[1], out[2], ops, out[3], out[4]

@@ -112,3 +112,59 @@ def test_local_kernel_nondefault_penalties(cuda, kw):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+_MODES = {
+    "e2e": (sw.SWParams(), _problems, sw.sw_e2e_backtrace_plain,
+            sw_cuda.sw_e2e_backtrace),
+    "local": (sw.SWParams(ma=2), _local_problems,
+              sw.sw_local_backtrace_plain, sw_cuda.sw_local_backtrace),
+}
+
+
+def _edge_problems(mode, case):
+    """The shapes the smoke run's phase 3 adds: the widest window (C=257,
+    the widest strip a lane holds), lanes with an empty read or an empty
+    window, every read as long as the matrix, every read one base."""
+    B, L, W = (512, 160, 256) if case == "C257" else (300, 160, 200)
+    args = _MODES[mode][1](7, B, L, W)
+    rdlens, wlens = args[2], args[4]
+    if case == "degenerate":
+        rdlens[::4] = 0
+        wlens[1::4] = 0
+    elif case == "all_L":
+        rdlens[:] = L
+    elif case == "all_1":
+        rdlens[:] = 1
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["C257", "degenerate", "all_L", "all_1"])
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+def test_kernel_edge_shapes(cuda, mode, case):
+    p, _gen, plain, wrapper = _MODES[mode]
+    args = [a.to(cuda) for a in _edge_problems(mode, case)]
+    want = plain(*args, p)
+    got = wrapper(*args, p)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+def test_kernel_on_side_stream(cuda, mode):
+    """The launch goes to the current stream, whichever it is, and a
+    batch need not fill its last block (two problems a block)."""
+    p, gen, plain, wrapper = _MODES[mode]
+    args = [a.to(cuda) for a in gen(3, 601, 160, 200)]
+    want = plain(*args, p)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = wrapper(*args, p)
+    side.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
