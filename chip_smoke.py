@@ -3,33 +3,50 @@
 
     python3 chip_smoke.py [--profile] [--sass]
 
-Drives the port's two main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
-``align -U`` end to end and ``align -U --local``) at a real size: a
-4.6 Mbp genome (a bacterium), 50,000 simulated reads for the end-to-end
-path and 100,000 for the local one. Phases, one line each, stamped with
-the seconds since the start:
+Drives the port's three main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
+``align -U`` end to end, ``align -U --local``, and both again on long
+reads against a reference with N runs) at a real size: two 4.6 Mbp genomes
+(a bacterium's size), 25,000 simulated reads for the end-to-end path,
+50,000 for the local one and 10,000 of 100 to 1,000 bp for the long one.
+Phases, one line each, stamped with the seconds since the start:
 
   1. the device: its name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from the checkout's sources, and of
      the native host library (CIGAR/MD finisher, SA-IS);
   3. each kernel (K1 end-to-end DP, K2 local DP) against its plain PyTorch
-     version on the card, at the main path's shapes, at the widest window
-     the wrappers take and on degenerate lanes (exact equality: all
-     outputs are integers), with both times and the kernel's bound;
-  4. the data, made with numpy from a seed, and the port's index build
-     (one index serves both paths);
+     version on the card, at the main paths' shapes (the narrow body: a
+     row in the warp's registers; the wide body: reads of up to 1,024
+     rows and windows past 288 columns swept in column tiles), on
+     degenerate lanes, on windows with N columns inside and on ties
+     across tiles (exact equality: all outputs are integers), with both
+     times and the kernel's bound; the cases are ``kernel_cases``;
+  4. the data, made with numpy from a seed, and the port's index builds;
   5. the end-to-end alignment, run twice on the card (the second run is
      timed), with reads/s, the aligned fraction, the phase profile and
      K1's launch count; checked against the simulated origins and against
-     the port's CPU run (plain versions only) on the first 2,000 reads;
+     the port's CPU run (plain versions only) on the first 1,000 reads;
   6. the same for ``--local`` on reads of which half carry 5-30 bp of
-     random flank, with K2's launch count and the soft-clip checks.
+     random flank, with K2's launch count and the soft-clip checks;
+  7. the long path: reads of 100, 150, 250, 500 and 1,000 bp with
+     substitutions and 1-5 bp indels, a share of them drawn across an N
+     run of the reference and a few hanging off a sequence's end, against
+     a genome of four sequences with N runs of 1 to 50 bases, once with
+     ``--overhang`` (K1) and once with ``--local`` (K2): placement of the
+     long reads, XN of the reads across a short N run, every record
+     inside its sequence, the first reads' SAM against the CPU run, and
+     the counters that show the kernels ran at the new shapes;
+  8. every (L, C) that the runs of phases 5 to 7 launched a kernel at
+     (``sw_cuda.SHAPES``) and that phase 3 did not hold: the kernel
+     against its plain version there too, so that no shape of the main
+     paths goes unchecked.
 
-``--profile`` adds one run of each path under torch.profiler and prints
-the device's busy share and the kernels' time by name. ``--sass`` adds to
-phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
+``--profile`` adds one run of each path under torch.profiler and prints the device's busy share and the kernels' time
+by name. ``--sass`` adds to phase 2 the instruction mix of one DP row of
+each kernel (cuobjdump).
 
-Then one JSON line describing the kernels and, last, the result line.
+Then one JSON line describing the kernels (each DP kernel's narrow and
+wide body is an entry of its own, with its own time, bound and launches,
+the launches also by path) and, last, the result line.
 Exits non-zero, printing no result, on any failure, without a CUDA
 device, or without the package beside it. Imports no JAX.
 """
@@ -54,8 +71,10 @@ from omp_bowtie2_prime_tpu_torch.ops import _build, sw, sw_cuda  # noqa: E402
 
 SEED = 20261016
 GENOME_BP = 4_600_000
-N_READS = {"e2e": 50_000, "local": 100_000}
-N_CPU_READS = 2_000
+N_READS = {"e2e": 25_000, "local": 50_000, "long": 10_000}
+N_CPU_READS = 1_000
+N_CPU_READS_LONG = 100  # the plain DP at 1,024 rows is slow on the CPU
+LONG_LENS = (100, 150, 250, 500, 1000)
 # The card's rates for the bounds. Device memory: 3.35 TB/s. Integer
 # add/max/compare outside the tensor cores: half of the 67 TFLOP/s float32
 # rate. An SM has 64 int32 lanes beside 128 float32 lanes, and Hopper's
@@ -92,11 +111,11 @@ KERNELS = {
 }
 
 
-_ASCII = np.frombuffer(b"ACGT", np.uint8)
+_ASCII = np.frombuffer(b"ACGTN", np.uint8)
 
 
 def decode(codes):
-    """Base codes 0..3 -> ACGT text (the simulated data has no N)."""
+    """Base codes 0..4 -> ACGTN text."""
     return _ASCII[codes].tobytes().decode()
 
 
@@ -107,15 +126,18 @@ def log(msg):
     print(f"{time.perf_counter() - _T0:7.1f}s {msg}", flush=True)
 
 
-def dp_problems(rng, B, L, W, ragged=False, flanks=False, degenerate=False):
-    """DP inputs as the main path builds them: reads with 2..6 qual
-    penalties, windows holding the read at an offset (with mismatches)
-    for most lanes, random windows for the rest. ``flanks`` replaces up
-    to 30 bases at the read's ends by random ones (local mode's clips).
-    ``degenerate`` gives every eighth lane a read of length 0 and the
-    lane after it a window of length 0."""
+def dp_problems(rng, B, L, W, lens=(100, 150), ragged=False, flanks=False,
+                degenerate=False, n_inside=False):
+    """DP inputs as the main paths build them: reads (of the lengths
+    ``lens``, or 1..L with ``ragged``) with 2..6 qual penalties, windows
+    holding the read at an offset (with mismatches) for most lanes,
+    random windows for the rest. ``flanks`` replaces up to 30 bases at the
+    read's ends by random ones (local mode's clips). ``degenerate`` gives
+    every eighth lane a read of length 0 and the lane after it a window
+    of length 0. ``n_inside`` sows runs of 1 to 12 N into the windows, as
+    a bridge window has them."""
     rdlens = (rng.integers(1, L + 1, B) if ragged
-              else rng.choice([100, 150], B)).astype(np.int32)
+              else rng.choice(lens, B)).astype(np.int32)
     reads = np.full((B, L), 4, np.int8)
     pens = np.zeros((B, L), np.int32)
     refs = rng.integers(0, 4, (B, W)).astype(np.int8)
@@ -133,6 +155,9 @@ def dp_problems(rng, B, L, W, ragged=False, flanks=False, degenerate=False):
             k = int(rng.integers(5, 31))
             reads[b, :k] = rng.integers(0, 4, k)
             reads[b, n - k : n] = rng.integers(0, 4, k)
+        if n_inside:
+            for q in rng.integers(0, W, 3):
+                refs[b, q : q + int(rng.integers(1, 13))] = 4
         wlens[b] = int(rng.integers(min(n, W), W + 1))
     if degenerate:
         rdlens[::8] = 0
@@ -175,69 +200,141 @@ def time_ms(fn, n):
 def dp_bound(args, nout_words, ops_per_cell):
     """(bound_ms, bound_by) of one DP launch on these inputs: each input
     read once and each output written once over the memory rate, against
-    the cells the data needs (rdlen rows of C columns per problem: rows
-    past a read's end change no output) times the integer operations per
-    cell over the int32 rate."""
+    the cells the data needs (per problem rdlen rows of the window's
+    min(wlen, W) columns and column 0: rows past a read's end and columns
+    past a window's end change no output) times the integer operations
+    per cell over the int32 rate."""
     reads, pens, rdlens, refs, wlens = args
     B, L = reads.shape
     C = refs.shape[1] + 1
     nops = -(-(L + C) // 4)
     nbytes = sum(a.numel() * a.element_size() for a in args) \
         + B * (4 * nout_words + nops)
-    cells = int(rdlens.clamp(0, L).sum()) * C
+    cells = int((rdlens.clamp(0, L).to(torch.int64)
+                 * (wlens.clamp(0, C - 1).to(torch.int64) + 1)).sum())
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * cells * ops_per_cell / INT32_OPS_PER_S
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def check_kernel(tag, rng):
-    """Phase 3: one kernel against its plain version, bit for bit, at the
-    main path's shapes, the widest window the wrappers take (C=257, the
-    widest strip a lane holds) and lanes with an empty read or window.
-    Returns the kernel's entry of the kernels line (times and bound at
-    the narrow shape), launches still to fill in."""
+def kernel_cases(local):
+    """Phase 3's cases, (label, B, L, W, problem options or None for
+    tie_problems, compare). Narrow body (L <= 160, C <= 288): the hot
+    shape, the escalation's, ragged reads, C=257, lanes with an empty
+    read or window. Wide body: the shapes the long path launches for its
+    250, 500 and 1,000 bp reads (L=256, C=289; L=512, C=545; L=1024,
+    C=1057) and for its bridge and escalation (L=1024, C=1089: a 1,000
+    bp read, its margins and the N runs a window absorbs), the latter on
+    ragged reads of 1 to 1,024 bases with N runs inside; L=384; C=481
+    (the widest strip of a wide tile end to end); a --dpad window on
+    short reads (C=513); low-complexity problems whose best cells tie
+    across column tiles (C > 512). What the paths launch beyond these is
+    held by phase 8. A case with compare
+    False is timed only (its shape is held at a smaller B)."""
+    fl = dict(flanks=local)
+    long_fl = dict(lens=(900, 1000, 1024), **fl)
+    cases = [("narrow", 8192, 160, 200, fl, True),
+             ("escalation", 512, 160, 224, fl, True),
+             ("ragged", 2048, 160, 200, dict(ragged=True), True),
+             ("widest narrow", 512, 160, 256, fl, True),
+             ("degenerate", 1024, 160, 200,
+              dict(ragged=True, degenerate=True), True),
+             ("L256", 1024, 256, 288, dict(lens=(200, 250), **fl), True),
+             ("L256 C481", 512, 256, 480, dict(lens=(200, 250), **fl), True),
+             ("L384", 1024, 384, 416, dict(lens=(300, 380), **fl), True),
+             ("L512 N inside", 512, 512, 544,
+              dict(lens=(400, 500), n_inside=True), True),
+             ("L1024", 256, 1024, 1056, long_fl, True),
+             ("L1024 B2048", 2048, 1024, 1056, long_fl, False),
+             ("dpad", 1024, 160, 512, fl, True),
+             ("bridge ragged", 256, 1024, 1088,
+              dict(ragged=True, degenerate=True, n_inside=True), True),
+             ("ties C601", 256, 160, 600, None, True),
+             ("ties C1101", 128, 300, 1100, None, True)]
+    if local:
+        cases.insert(5, ("ties+allN", 1024, 160, 200, None, True))
+    return cases
+
+
+def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3):
+    """One kernel on one set of problems: held against its plain version
+    bit for bit (unless compare is False), timed, and set beside its
+    bound. Returns the case's row of the kernels line."""
     k = KERNELS[tag]
     p, wrapper, plain = k["params"], k["wrapper"], k["plain"]
-    local = tag == "K2"
-    shapes = [("narrow", 8192, 200, dict(flanks=local)),
-              ("escalation", 512, 224, dict(flanks=local)),
-              ("ragged", 2048, 200, dict(ragged=True)),
-              ("widest", 512, sw_cuda.C_MAX - 1, dict(flanks=local)),
-              ("degenerate", 1024, 200,
-               dict(ragged=True, degenerate=True))]
-    if local:
-        shapes.append(("ties+allN", 1024, 200, None))
-    entry = None
-    worst = 0
-    for label, B, W, kw in shapes:
-        args = (tie_problems(rng, B, 160, W) if kw is None
-                else dp_problems(rng, B, 160, W, **kw))
+    args = (tie_problems(rng, B, L, W) if kw is None
+            else dp_problems(rng, B, L, W, **kw))
+    plain_ms = err = None
+    if compare:
         got = wrapper(*args, p)
-        want = plain(*args, p)
         torch.cuda.synchronize()
+        # the plain version runs once: its one call is compared and timed
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        want = plain(*args, p)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
         assert len(got) == len(want) == k["nout"]
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
-        worst = max(worst, err)
         if err != 0:
             raise AssertionError(
                 f"{tag} kernel != plain at {label}: max err {err}")
-        ms = time_ms(lambda: wrapper(*args, p), 20)
-        plain_ms = time_ms(lambda: plain(*args, p), 1)
-        bound_ms, bound_by = dp_bound(args, k["nout"] - 1, k["ops_per_cell"])
-        log(f"[3] {tag} {label}: B={B} L=160 C={W + 1} kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({bound_by}), max_abs_err {err} (tolerance: exact)")
-        if label == "narrow":
-            entry = dict(
-                name=k["name"], route=k["route"], source=k["source"],
-                replaces=k["replaces"], launches=0, max_abs_err=0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                # no single PyTorch call computes a banded affine-gap DP
-                # with a trace walk
-                library_ms=None)
-    entry["max_abs_err"] = worst
-    return entry
+        del got, want
+    ms = time_ms(lambda: wrapper(*args, p), 20 if L <= 160 else 5)
+    bound_ms, bound_by = dp_bound(args, k["nout"] - 1, k["ops_per_cell"])
+    log(f"[{phase}] {tag} {label}: B={B} L={L} C={W + 1} kernel {ms:.3f} ms, "
+        + (f"plain {plain_ms:.3f} ms, " if compare else "plain not run, ")
+        + f"bound {bound_ms:.3f} ms ({bound_by})"
+        + (f", max_abs_err {err} (tolerance: exact)" if compare else ""))
+    return dict(label=label, B=B, L=L, C=W + 1, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def kernel_entry(tag, rows, narrow):
+    """One body's entry of the kernels line: the narrow body's numbers
+    are those of the hot shape (B=8192, L=160, C=201), the wide body's
+    those of the longest reads' (B=256, L=1024, C=1057); every case of
+    the body under ``shapes``. Launches are filled in by the paths."""
+    k = KERNELS[tag]
+    mine = [r for r in rows if sw_cuda.is_narrow(r["L"], r["C"]) == narrow]
+    main = next(r for r in mine
+                if r["label"] == ("narrow" if narrow else "L1024"))
+    return dict(
+        name=k["name"] + ("" if narrow else "_wide"), route=k["route"],
+        source=k["source"], replaces=k["replaces"], launches=0,
+        max_abs_err=0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        # no single PyTorch call computes a banded affine-gap DP with a
+        # trace walk
+        library_ms=None,
+        device_kernel="sw_dp_kernel" if narrow else "sw_dp_wide_kernel",
+        shape={x: main[x] for x in "BLC"}, launches_by_path={},
+        shapes=mine)
+
+
+def check_kernel(tag, rng):
+    """Phase 3: one kernel against its plain version, bit for bit, on
+    every case of ``kernel_cases``. Returns the entries of its two bodies
+    and the (L, C) held."""
+    rows = [hold_case(tag, rng, *case)
+            for case in kernel_cases(tag == "K2")]
+    held = {(r["L"], r["C"]) for r in rows if r["max_abs_err"] is not None}
+    return {True: kernel_entry(tag, rows, True),
+            False: kernel_entry(tag, rows, False)}, held
+
+
+def hold_seen(tag, rng, entries, held, seen):
+    """Phase 8: the kernel against its plain version at every (L, C) the
+    main paths launched it at and no case has held yet, on 64 problems
+    with reads near L rows long and N runs in the windows."""
+    for L, C in sorted(set(seen) - held):
+        row = hold_case(tag, rng, f"seen L{L} C{C}", 64, L, C - 1,
+                        dict(lens=(max(1, L - 30), max(1, L - 5)),
+                             flanks=tag == "K2", n_inside=True), phase=8)
+        entries[sw_cuda.is_narrow(L, C)]["shapes"].append(row)
+        held.add((L, C))
 
 
 def sass_row(lib, strip):
@@ -248,7 +345,7 @@ def sass_row(lib, strip):
     text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     for func in text.split("Function : ")[1:]:
-        m = re.match(rf"\S*sw_dp_kernelILi{strip}ELb(\d)E", func)
+        m = re.match(rf"\S*sw_dp_kernelILi{strip}ELb(\d)E", func)  # narrow body
         if not m:
             continue
         ins = [(int(a, 16), t) for a, t in
@@ -356,17 +453,172 @@ def make_data(wd):
     return idx, sets
 
 
+def make_long_data(wd):
+    """Phase 4, long path: a second genome of GENOME_BP bases cut into
+    four sequences, N runs of 1 to 50 bases sown inside them (40 per
+    Mbp), and N_READS["long"] reads of LONG_LENS in turn with 0-3
+    substitutions per 100 bp, a fifth with a 1-5 bp indel, both strands;
+    every seventh read is drawn across an N run (it has random bases
+    there) and every 97th hangs 3-20 bases off a sequence's end. Returns
+    (index, fastq, head fastq, per-read arrays: sequence, origin, has
+    indel, N columns under the read, overhang, and the sequences'
+    names)."""
+    rng = np.random.default_rng(SEED + 2)
+    text = rng.integers(0, 4, GENOME_BP).astype(np.int8)
+    cuts = [int(GENOME_BP * x) for x in (0, 0.435, 0.74, 0.935, 1)]
+    seqs = [text[a:b].copy() for a, b in zip(cuts[:-1], cuts[1:])]
+    names = [f"contig{r + 1}" for r in range(len(seqs))]
+    runs = []
+    for r, s in enumerate(seqs):
+        at = np.sort(rng.choice(np.arange(2000, len(s) - 2000, 2500),
+                                size=len(s) * 40 // 1_000_000, replace=False))
+        runs.append([(int(p), int(rng.integers(1, 51))) for p in at])
+        for p0, k in runs[r]:
+            s[p0 : p0 + k] = 4
+    fa = os.path.join(wd, "genome_n.fa")
+    with open(fa, "w") as f:
+        for name, s in zip(names, seqs):
+            f.write(f">{name}\n")
+            t = decode(s)
+            for i in range(0, len(t), 80):
+                f.write(t[i : i + 80] + "\n")
+    n = N_READS["long"]
+    rid = np.zeros(n, np.int64)
+    origin = np.zeros(n, np.int64)
+    indel = np.zeros(n, bool)
+    n_cols = np.zeros(n, np.int64)
+    hang = np.zeros(n, bool)
+    fq = os.path.join(wd, "reads_long.fq")
+    with open(fq, "w") as f:
+        for i in range(n):
+            ln = LONG_LENS[i % len(LONG_LENS)]
+            r = int(rng.choice(len(seqs), p=np.diff(cuts) / GENOME_BP))
+            s = seqs[r]
+            if i % 7 == 3:  # across an N run
+                p0, k = runs[r][int(rng.integers(0, len(runs[r])))]
+                p = p0 - int(rng.integers(ln // 4, 3 * ln // 4))
+            elif i % 97 == 5:  # hanging off an end
+                hang[i] = True
+                over = int(rng.integers(3, 21))
+                p = -over if i % 2 else len(s) - ln + over
+            else:
+                p = int(rng.integers(0, len(s) - ln - 8))
+            lo, hi = max(p, 0), min(p + ln + 8, len(s))
+            seq = np.concatenate([
+                rng.integers(0, 4, lo - p).astype(np.int8), s[lo:hi],
+                rng.integers(0, 4, max(0, p + ln - len(s))).astype(np.int8)])
+            n_cols[i] = int((s[lo : min(p + ln, len(s))] == 4).sum())
+            isn = seq == 4
+            seq[isn] = rng.integers(0, 4, int(isn.sum()))
+            if rng.random() < 0.2 and not hang[i]:
+                indel[i] = True
+                k = int(rng.integers(1, 6))
+                q = int(rng.integers(30, ln - 30))
+                if rng.random() < 0.5:
+                    seq = np.concatenate([seq[:q], seq[q + k :]])
+                else:
+                    seq = np.concatenate(
+                        [seq[:q], rng.integers(0, 4, k).astype(np.int8),
+                         seq[q:]])
+            seq = seq[:ln]
+            for m in rng.integers(0, ln, int(rng.integers(0, 1 + 3 * ln // 100))):
+                seq[m] = (seq[m] + 1 + rng.integers(0, 3)) % 4
+            if rng.random() < 0.5:
+                seq = 3 - seq[::-1]
+            rid[i], origin[i] = r, p
+            qual = (rng.integers(2, 41, ln) + 33).astype(np.uint8).tobytes()
+            f.write(f"@s{i}\n{decode(seq)}\n+\n{qual.decode()}\n")
+    head = fq[:-3] + ".head.fq"
+    with open(fq) as src, open(head, "w") as dst:
+        for _ in range(4 * N_CPU_READS_LONG):
+            dst.write(src.readline())
+    idx = os.path.join(wd, "genome_n.npz")
+    t0 = time.perf_counter()
+    cli.main(["build", fa, idx])
+    log(f"[4] long data: {GENOME_BP} bp in {len(seqs)} sequences with "
+        f"{sum(len(x) for x in runs)} N runs of 1-50 bases; {n} reads of "
+        f"{'/'.join(map(str, LONG_LENS))} bp, {int(indel.sum())} with a 1-5 "
+        f"bp indel, {int((n_cols > 0).sum())} across an N run, "
+        f"{int(hang.sum())} hanging off a sequence's end, both strands; "
+        f"index built in {time.perf_counter() - t0:.1f} s")
+    return idx, fq, head, (rid, origin, indel, n_cols, hang, names,
+                           [len(x) for x in seqs])
+
+
 def sam_records(path):
     with open(path) as f:
         return [ln for ln in f.read().splitlines() if not ln.startswith("@")]
 
 
-def align(idx, fq, sam, device, local):
+def align(idx, fq, sam, device, local, flags=()):
     return cli.main(["align", "-x", idx, "-U", fq, "-S", sam,
-                     "--device", device] + (["--local"] if local else []))
+                     "--device", device, *flags]
+                    + (["--local"] if local else []))
 
 
-def profile_run(idx, fq, sam, local, untraced_wall):
+def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
+    """One warm run and one timed run on the card, the launch counts set
+    to 0 just before the timed run and read just after. Logs reads/s, the
+    aligned fraction, the timers and the counters; returns (records,
+    flags column, aligned fraction, (K1 launches, K2 launches), wall
+    seconds, the aligner, the timed run's launches by (L, C)). Fails if
+    the run launched no kernel of its mode, launched the other mode's, or
+    bypassed the native finisher."""
+    align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
+    sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
+    sw_cuda.SHAPES.clear()
+    native.FINISH_CALLS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    al = align(idx, fq, sam, "cuda", local, flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL)
+    shapes = {(L, C): n for (_loc, L, C), n in sw_cuda.SHAPES.items()}
+    finishes = native.FINISH_CALLS
+    recs = sam_records(sam)
+    assert len(recs) == n_reads, len(recs)
+    sam_flags = np.array([int(r.split("\t", 2)[1]) for r in recs])
+    frac = float(((sam_flags & 4) == 0).mean())
+    opts = " ".join((*flags, *(["--local"] if local else [])))
+    log(f"[{phase}] align {opts} on cuda: {n_reads} "
+        f"reads in {wall:.2f} s = {n_reads / wall:.1f} reads/s (wall, index "
+        f"load included); aligned {100 * frac:.2f}%; K1 launches "
+        f"{launches[0]}, K2 launches {launches[1]}; native finisher "
+        f"{'used' if finishes else 'NOT used'} ({finishes} batches)")
+    log(f"[{phase}]   launches by (L, C): "
+        + ", ".join(f"{L}x{C}: {n}" for (L, C), n in sorted(shapes.items())))
+    for line in al.timers.render().splitlines():
+        log(f"[{phase}]   {line}")
+    log(f"[{phase}]   {al.metrics.render()}")
+    mine, other = (launches[1], launches[0]) if local else launches
+    tag = "local" if local else "end-to-end"
+    if mine <= 0:
+        raise AssertionError(f"the {tag} run launched no kernel of its own")
+    if other != 0:
+        raise AssertionError(f"the {tag} run launched the other DP kernel")
+    if not finishes:
+        raise AssertionError("the native finisher was not used")
+    if sum(shapes.values()) != mine or any(
+            loc != local for loc, _L, _C in sw_cuda.SHAPES):
+        raise AssertionError(f"the {tag} run's launches by shape do not add "
+                             "up to its launch count")
+    return recs, sam_flags, frac, wall, al, shapes
+
+
+def cpu_identity(phase, idx, head, sam, local, recs, n_head, flags=()):
+    """The first n_head reads on the CPU (plain versions only): their SAM
+    records must be those of the card's run byte for byte."""
+    align(idx, head, sam, "cpu", local, flags)
+    same = sam_records(sam) == recs[:n_head]
+    log(f"[{phase}] first {n_head} reads on cpu (plain versions): SAM "
+        f"records {'byte-identical to' if same else 'DIFFER from'} the "
+        "cuda run")
+    if not same:
+        raise AssertionError("cpu and cuda SAM records differ")
+
+
+def profile_run(idx, fq, sam, local, untraced_wall, flags=(), tag=None):
     """One run under torch.profiler: the device's kernel and copy time by
     name (device-side events only, so that no kernel counts twice, once
     for itself and once for the operator that launched it), and the busy
@@ -377,7 +629,7 @@ def profile_run(idx, fq, sam, local, untraced_wall):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        align(idx, fq, sam, "cuda", local)
+        align(idx, fq, sam, "cuda", local, flags)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [(getattr(e, "self_device_time_total",
@@ -387,7 +639,7 @@ def profile_run(idx, fq, sam, local, untraced_wall):
     if not rows:
         raise AssertionError("torch.profiler recorded no device time")
     dev_ms = sum(r[0] for r in rows) / 1e3
-    tag = "local" if local else "e2e"
+    tag = tag or ("local" if local else "e2e")
     log(f"[P] {tag}: device time {dev_ms:.1f} ms in {sum(r[2] for r in rows)} "
         f"kernels and copies; traced wall {wall:.3f} s; busy share of the "
         f"untraced run's {untraced_wall:.3f} s: "
@@ -395,41 +647,19 @@ def profile_run(idx, fq, sam, local, untraced_wall):
     for us, key, count in rows[:8]:
         log(f"[P]   {us / 1e3:9.1f} ms  x{count:<6d} {key[:90]}")
     for us, key, count in rows:
-        if "sw_dp_kernel" in key:
+        if "sw_dp_" in key:
             log(f"[P]   DP kernel {key[:40]}: {us / 1e3:.1f} ms in {count} "
                 f"launches = {100 * us / 1e3 / dev_ms:.1f}% of device time")
 
 
 def run_path(phase, idx, readset, wd, local):
     """Phases 5 and 6: warm run, timed run, checks. Returns (the path's
-    own kernel's launch count, wall seconds) of the timed run."""
+    own kernel's launches by (L, C), wall seconds) of the timed run."""
     fq, head, origin, indel, left, flanked = readset
     tag = "local" if local else "e2e"
-    gpu_sam = os.path.join(wd, f"gpu_{tag}.sam")
-    align(idx, fq, gpu_sam, "cuda", local)  # first run: warm caches
-    sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
-    native.FINISH_CALLS = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    al = align(idx, fq, gpu_sam, "cuda", local)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL)
-    finishes = native.FINISH_CALLS
-
-    recs = sam_records(gpu_sam)
-    n_reads = N_READS[tag]
-    assert len(recs) == n_reads, len(recs)
-    flags = np.array([int(r.split("\t", 2)[1]) for r in recs])
-    frac = float(((flags & 4) == 0).mean())
-    log(f"[{phase}] align{' --local' if local else ''} on cuda: {n_reads} "
-        f"reads in {wall:.2f} s = {n_reads / wall:.1f} reads/s (wall, index "
-        f"load included); aligned {100 * frac:.2f}%; K1 launches "
-        f"{launches[0]}, K2 launches {launches[1]}; native finisher "
-        f"{'used' if finishes else 'NOT used'} ({finishes} batches)")
-    for line in al.timers.render().splitlines():
-        log(f"[{phase}]   {line}")
-    log(f"[{phase}]   {al.metrics.render()}")
+    recs, flags, frac, wall, _al, shapes = timed_align(
+        phase, idx, fq, os.path.join(wd, f"gpu_{tag}.sam"), local,
+        N_READS[tag])
 
     ok_pos = tot = clipped = 0
     for r, fl in zip(recs, flags):
@@ -452,21 +682,8 @@ def run_path(phase, idx, readset, wd, local):
     if local:
         log(f"[{phase}] {clipped}/{n_fl} flanked reads carry an S in their "
             f"CIGAR ({100 * clipped / max(n_fl, 1):.2f}%)")
-
-    cpu_sam = os.path.join(wd, f"cpu_{tag}.sam")
-    align(idx, head, cpu_sam, "cpu", local)
-    same = sam_records(cpu_sam) == recs[:N_CPU_READS]
-    log(f"[{phase}] first {N_CPU_READS} reads on cpu (plain versions): SAM "
-        f"records {'byte-identical to' if same else 'DIFFER from'} the "
-        "cuda run")
-
-    mine, other = (launches[1], launches[0]) if local else launches
-    if mine <= 0:
-        raise AssertionError(f"the {tag} path launched no kernel of its own")
-    if other != 0:
-        raise AssertionError(f"the {tag} path launched the other DP kernel")
-    if not finishes:
-        raise AssertionError("the native finisher was not used")
+    cpu_identity(phase, idx, head, os.path.join(wd, f"cpu_{tag}.sam"), local,
+                 recs, N_CPU_READS)
     if frac < 0.95:
         raise AssertionError(f"{tag}: aligned fraction {frac:.4f} < 0.95")
     if pos_frac < 0.99:
@@ -474,9 +691,79 @@ def run_path(phase, idx, readset, wd, local):
                              "< 0.99")
     if local and clipped < 0.9 * n_fl:
         raise AssertionError(f"only {clipped}/{n_fl} flanked reads clipped")
-    if not same:
-        raise AssertionError(f"{tag}: cpu and cuda SAM records differ")
-    return mine, wall
+    return shapes, wall
+
+
+def run_long(idx, fq, head, truth, wd, local):
+    """Phase 7, one mode: the long reads against the genome with N runs,
+    with --overhang end to end or with --local. Checks, each a failure
+    when missed: of the reads of 250 bp and more at least 95% align, and
+    at least 99% of those with MAPQ >= 20 and no indel lie at their
+    origin (sequence and POS less the leading clip); end to end, the
+    reads across an N run of up to 10 bases align with XN counting the
+    run; every record lies inside its sequence; the first reads' SAM is
+    the CPU run's; the run went through the bridge, through shapes past
+    the hot one and through the kernel's wide body. Returns (launches by
+    (L, C), wall seconds)."""
+    rid, origin, indel, n_cols, hang, names, seqlens = truth
+    tag = "long local" if local else "long e2e"
+    recs, flags, _frac, wall, al, shapes = timed_align(
+        7, idx, fq, os.path.join(wd, f"gpu_long{int(local)}.sam"), local,
+        N_READS["long"], () if local else ("--overhang",))
+    lens_of = dict(zip(names, seqlens))
+    n_long = al_long = ok_pos = tot = xn_ok = xn_tot = xn_aligned = 0
+    for r, fl in zip(recs, flags):
+        f = r.split("\t")
+        i = int(f[0][1:])
+        ln = len(f[9])
+        short_run = 0 < n_cols[i] <= 10 and not indel[i] and not hang[i]
+        n_long += ln >= 250
+        xn_tot += short_run and not local
+        if fl & 4:
+            continue
+        al_long += ln >= 250
+        span = sum(int(n) for n, op in re.findall(r"(\d+)([MDN=X])", f[5]))
+        if int(f[3]) < 1 or int(f[3]) - 1 + span > lens_of[f[2]]:
+            raise AssertionError(f"{tag}: record off its sequence: {r[:120]}")
+        if short_run and not local:
+            xn_aligned += 1
+            xn = [t for t in f[11:] if t.startswith("XN:i:")]
+            xn_ok += bool(xn) and int(xn[0][5:]) == n_cols[i]
+        if ln < 250 or indel[i] or int(f[4]) < 20:
+            continue
+        lead = re.match(r"(\d+)S", f[5])
+        tot += 1
+        ok_pos += (f[2] == names[rid[i]] and
+                   int(f[3]) - 1 - (int(lead.group(1)) if lead else 0)
+                   == origin[i])
+    frac = al_long / max(n_long, 1)
+    pos_frac = ok_pos / max(tot, 1)
+    log(f"[7] {tag}: reads of 250 bp and more: {al_long}/{n_long} aligned "
+        f"({100 * frac:.2f}%); at their origin {ok_pos}/{tot} of those with "
+        f"MAPQ >= 20 and no indel ({100 * pos_frac:.2f}%); every record "
+        "inside its sequence")
+    if not local:
+        log(f"[7] {tag}: reads across an N run of 1-10 bases: {xn_aligned}/"
+            f"{xn_tot} aligned, {xn_ok} with XN equal to the run")
+    m = al.metrics
+    log(f"[7] {tag}: dps_bridge {m.dps_bridge}, dps_irregular "
+        f"{m.dps_irregular}, dps_wide {m.dps_wide}")
+    cpu_identity(7, idx, head, os.path.join(wd, f"cpu_long{int(local)}.sam"),
+                 local, recs, N_CPU_READS_LONG,
+                 () if local else ("--overhang",))
+    if frac < 0.95:
+        raise AssertionError(f"{tag}: aligned fraction {frac:.4f} < 0.95")
+    if pos_frac < 0.99:
+        raise AssertionError(f"{tag}: placement {pos_frac:.4f} < 0.99")
+    if not local and (xn_aligned < 0.95 * xn_tot or xn_ok < 0.95 * xn_aligned
+                      or xn_tot == 0):
+        raise AssertionError(f"{tag}: reads across short N runs: {xn_aligned}"
+                             f"/{xn_tot} aligned, {xn_ok} with the run's XN")
+    if m.dps_bridge <= 0 or m.dps_irregular <= 0:
+        raise AssertionError(f"{tag}: no bridge or no irregular problem ran")
+    if all(sw_cuda.is_narrow(L, C) for L, C in shapes):
+        raise AssertionError(f"{tag}: no launch went to the wide body")
+    return shapes, wall
 
 
 def main():
@@ -501,11 +788,12 @@ def main():
         f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     with open(lib + ".log") as f:
         report = f.read()
-    # ptxas' report: one instance per strip width S and mode
-    for strip, local, spill, regs in re.findall(
-            r"sw_dp_kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill stores"
-            r".*?Used (\d+) registers", report, re.S):
-        log(f"[2]   {'K2' if local == '1' else 'K1'} S={strip}: {regs} "
+    # ptxas' report: one instance per body, strip width S and mode
+    for body, strip, local, spill, regs in re.findall(
+            r"sw_dp_(wide_)?kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill "
+            r"stores.*?Used (\d+) registers", report, re.S):
+        log(f"[2]   {'K2' if local == '1' else 'K1'} "
+            f"{'wide' if body else 'narrow'} S={strip}: {regs} "
             f"registers, {spill} bytes spilled, no shared memory, "
             f"{min(64, 65536 // (32 * -(-int(regs) // 8) * 8))} warps an SM")
     if "--sass" in sys.argv[1:]:
@@ -515,25 +803,58 @@ def main():
     log("[2] build: native host library (csrc/btcore.cpp, g++)")
 
     rng = np.random.default_rng(SEED + 1)
-    entries = {tag: check_kernel(tag, rng) for tag in ("K1", "K2")}
+    entries, held, seen = {}, {}, {"K1": set(), "K2": set()}
+    for tag in ("K1", "K2"):
+        entries[tag], held[tag] = check_kernel(tag, rng)
+
+    def count(tag, path, shapes):
+        """Adds one path's launches to the entries of the kernel's bodies."""
+        seen[tag] |= set(shapes)
+        for narrow, e in entries[tag].items():
+            n = sum(k for (L, C), k in shapes.items()
+                    if sw_cuda.is_narrow(L, C) == narrow)
+            e["launches_by_path"][path] = n
+            e["launches"] += n
 
     wd = tempfile.mkdtemp(prefix="bt2torch_smoke_")
     try:
         idx, sets = make_data(wd)
         walls = {}
-        entries["K1"]["launches"], walls["e2e"] = run_path(
-            5, idx, sets["e2e"], wd, False)
-        entries["K2"]["launches"], walls["local"] = run_path(
-            6, idx, sets["local"], wd, True)
+        shapes, walls["e2e"] = run_path(5, idx, sets["e2e"], wd, False)
+        count("K1", "e2e", shapes)
+        shapes, walls["local"] = run_path(6, idx, sets["local"], wd, True)
+        count("K2", "local", shapes)
+        lidx, lfq, lhead, truth = make_long_data(wd)
+        for tag, local in (("K1", False), ("K2", True)):
+            shapes, walls[tag] = run_long(lidx, lfq, lhead, truth, wd, local)
+            count(tag, "long --local" if local else "long --overhang", shapes)
         if want_profile:
             for mode in ("e2e", "local"):
                 profile_run(idx, sets[mode][0], os.path.join(wd, "prof.sam"),
                             mode == "local", walls[mode])
+            profile_run(lidx, lfq, os.path.join(wd, "prof.sam"), False,
+                        walls["K1"], ("--overhang",), "long e2e")
+            profile_run(lidx, lfq, os.path.join(wd, "prof.sam"), True,
+                        walls["K2"], (), "long local")
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 
+    kernels = []
+    for tag in ("K1", "K2"):
+        todo = sorted(seen[tag] - held[tag])
+        log(f"[8] {tag}: launched at {len(seen[tag])} shapes on the main "
+            f"paths, {len(todo)} of them not held by phase 3: {todo}")
+        hold_seen(tag, rng, entries[tag], held[tag], seen[tag])
+        for narrow in (True, False):
+            e = entries[tag][narrow]
+            e["max_abs_err"] = max(r["max_abs_err"] for r in e["shapes"]
+                                   if r["max_abs_err"] is not None)
+            if e["launches"] <= 0:
+                raise AssertionError(f"{e['name']} was launched on no path")
+            kernels.append(e)
+
     print(smi)
-    print(json.dumps({"kernels": [entries["K1"], entries["K2"]]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

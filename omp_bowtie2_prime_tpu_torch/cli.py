@@ -3,14 +3,21 @@
     python -m omp_bowtie2_prime_tpu_torch.cli build genome.fa idx.npz
     python -m omp_bowtie2_prime_tpu_torch.cli align -x idx.npz -U reads.fq \\
         -S out.sam [--local] [--ma N] [--very-fast-local | --fast-local |
-        --sensitive-local | --very-sensitive-local] [--device cuda]
-        [--seed N] [-p 1] [--batch N] [-t]
+        --sensitive-local | --very-sensitive-local] [--overhang]
+        [--dpad N] [--gbar N] [--device cuda] [--seed N] [-p 1]
+        [--batch N] [-t]
 
 The same commands and defaults as omp_bowtie2_prime_tpu.cli for unpaired
 reads, end to end or (``--local``) with soft clipping; the index files
-are interchangeable. Any other option of the JAX package's CLI is refused
-with the ROADMAP.md item that will bring it. ``--device`` names the torch
-device (default ``cuda``); nothing falls back to another device.
+are interchangeable. The reference may hold runs of N (reads align across
+short ones) and the reads may be of any length: up to 1,024 bp they
+align, longer ones come out unaligned. ``--overhang`` lets alignments hang
+off a reference's ends (soft-clipped in the record), ``--dpad`` sets the
+gap margin a DP window gets on each side (default 15), ``--gbar`` how
+close to a read's end a gap may come (default 4). Any other option of the
+JAX package's CLI is refused with the ROADMAP.md item that will bring it.
+``--device`` names the torch device (default ``cuda``); nothing falls
+back to another device.
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ _LATER = {
                    "--no-mixed", "--no-discordant", "--dovetail",
                    "--no-contain", "--no-overlap", "--un-conc", "--al-conc",
                    "--un-mates", "--align-paired-reads"),
-    "long and wide windows, N bridge": ("--overhang", "--dpad", "--gbar"),
     "host/device overlap and -p 2": ("--threads",),
     "build and inspect": ("--bt2", "--large-index", "--bmax", "--bmaxdivn",
                           "--dcv", "--offrate", "-o", "--sa-rate"),
@@ -101,13 +107,15 @@ def run_align(args):
             sc_kwargs["score_min"] = SimpleFunc.parse("G,20,8")
         else:
             preset = PRESETS[DEFAULT_PRESET]
+        sc_kwargs["gap_barrier"] = args.gbar
         if args.ma is not None:
             sc_kwargs["match_bonus"] = args.ma
         elif local:
             sc_kwargs["match_bonus"] = 2
         opts = AlignOpts(seed_len=preset.seed_len, ival=preset.ival,
                          nrounds=preset.nrounds, dps=preset.dps,
-                         rng_seed=args.seed, local=local)
+                         rng_seed=args.seed, local=local,
+                         maxhalf=args.dpad, overhang=args.overhang)
         aligner = TorchAligner(fm, Scoring(**sc_kwargs), opts,
                                device=args.device, timers=timers)
     out = open(args.sam, "w") if args.sam != "-" else sys.stdout
@@ -163,6 +171,12 @@ def main(argv=None):
                        action="store_const", const=f"{name}-local")
     a.add_argument("--ma", type=int, default=None,
                    help="match bonus (local default 2, end-to-end 0)")
+    a.add_argument("--gbar", type=int, default=4,
+                   help="no gaps within this many read chars of either end")
+    a.add_argument("--dpad", type=int, default=15,
+                   help="gap margin of a DP window on each side")
+    a.add_argument("--overhang", action="store_true",
+                   help="alignments may hang off a reference's ends")
     a.add_argument("--seed", type=int, default=0)
     a.add_argument("-p", "--threads", type=int, default=1)
     a.add_argument("--batch", type=int, default=8192)

@@ -44,6 +44,12 @@
 //    lane (16 ops each) and stores once. A path of 150 matches takes five
 //    rounds of one load each, not 150 dependent loads by one lane.
 //
+// Shapes past those (reads of up to L_MAX = 1024 rows, windows of up to
+// C_MAX = 4097 columns: long reads, --dpad windows, N-bridge windows) go to
+// a second body, sw_dp_wide_kernel, further down: the same row, swept over
+// column tiles. The narrow instances above are what the main path of
+// short reads runs and are kept apart from it.
+//
 // The results are bitwise those of the JAX functions: every value that
 // reaches an output (NEG floors, the 0 floor of local mode, the
 // prefix-max read-gap term over the un-floored row, the gap barrier, the
@@ -61,6 +67,11 @@ constexpr int NEG = -(1 << 20);
 constexpr int LOW = -(1 << 29);  // below any reachable score
 constexpr int WARPS = 2;          // problems per block
 constexpr int S_MAX = 9;          // widest strip: C <= 288
+constexpr int L_NARROW = 160;     // the one-tile body takes L <= 160 and
+                                  // C <= 32 * S_MAX: its op string is one
+                                  // word a lane (L + C <= 512 ops)
+constexpr int L_MAX = 1024;       // longest read of either body
+constexpr int C_MAX = 4097;       // widest DP (window + column 0)
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Pen {
@@ -346,6 +357,326 @@ sw_dp_kernel(const int8_t* __restrict__ reads, const int32_t* __restrict__ pens,
   }
 }
 
+// ---------------------------------------------------------------------
+// The wide body: any L <= L_MAX and any C <= C_MAX.
+//
+// One warp still owns a problem, but the row no longer fits its registers,
+// so the warp sweeps the DP in column tiles of 32 * S columns, left to
+// right, every tile over all rdlen rows. S is at most 8 end to end and 6
+// in local mode, which keeps a lane's trace bits of a row in one word; the
+// dispatch picks the smallest S that covers C with the fewest tiles. Tiles
+// past the window's last live column (min(wlen, W)) are never computed:
+// their cells are NEG, no best cell lies there and no walk enters them.
+//
+// What crosses a tile's right edge, per row, goes through a scratch of
+// [2, B, L] int2 in device memory (two buffers, written and read in
+// turn): the floored H of the tile's last column, which is the next
+// tile's left neighbour for the read-gap-open bit of that row and its
+// diagonal for the row below, and the running prefix max of the
+// un-floored row in window coordinates, which seeds the next tile's
+// read-gap scan. Lane 31 stores the pair of a row; the next tile
+// prefetches them 32 rows at a time like the read's codes and broadcasts
+// them by shuffle. Only the first tile has a column 0 with its special
+// values.
+//
+// The best cell is found per tile with the narrow body's key, whose low
+// nine bits hold the column within the tile, and merged across tiles by
+// comparing scores and rows: a later tile holds larger columns, so it wins
+// a tie only with a smaller row (local mode) and never end to end.
+//
+// The trace is [B, NT, L, 32] words; the walk decodes a cell's tile first.
+// The op string can be 3,073 ops long, so the warp holds a window of 512
+// ops (one word a lane) and, whenever the walk is past the window's
+// middle, stores the lower half and shifts the upper half down; a round of
+// the walk adds at most 33 ops.
+constexpr int S_WIDE_E2E = 8;
+constexpr int S_WIDE_LOCAL = 6;
+
+__host__ __device__ constexpr int wide_smax(bool local) {
+  return local ? S_WIDE_LOCAL : S_WIDE_E2E;
+}
+// column tiles of a wide launch
+__host__ __device__ constexpr int wide_tiles(int C, bool local) {
+  return (C + 32 * wide_smax(local) - 1) / (32 * wide_smax(local));
+}
+// bytes of scratch one wide launch needs: the trace, then the edge pairs
+constexpr size_t wide_trace_words(int B, int L, int C, bool local) {
+  return (size_t)B * wide_tiles(C, local) * L * 32;
+}
+constexpr size_t wide_scratch_bytes(int B, int L, int C, bool local) {
+  return wide_trace_words(B, L, C, local) * 4 + (size_t)2 * B * L * 8;
+}
+
+// stores word w of a problem's op string (rows are not word-aligned)
+__device__ __forceinline__ void op_store(uint8_t* orow, int w, uint32_t v,
+                                         int nops_bytes) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (4 * w + q < nops_bytes) orow[4 * w + q] = (uint8_t)(v >> (8 * q));
+}
+
+template <int S, bool LOCAL>
+__global__ void __launch_bounds__(WARPS * 32)
+sw_dp_wide_kernel(const int8_t* __restrict__ reads,
+                  const int32_t* __restrict__ pens,
+                  const int32_t* __restrict__ rdlens,
+                  const int8_t* __restrict__ refs,
+                  const int32_t* __restrict__ wlens, int B, int L, int W,
+                  int NT, const __grid_constant__ Pen p,
+                  int32_t* __restrict__ out, uint8_t* __restrict__ ops_out,
+                  int nops_bytes, uint32_t* trace, int2* edge) {
+  using T = Trace<S, LOCAL>;
+  static_assert(T::NW == 1, "a wide tile keeps one trace word a lane");
+  constexpr int PB = T::PB;
+  constexpr int TC = 32 * S;  // columns of a tile
+  constexpr int FLOOR = LOCAL ? 0 : NEG;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // warp-uniform; the kernel has no block-wide barrier
+
+  const int C = W + 1;
+  const int rdlen = rdlens[b];
+  const int wlen = wlens[b];
+  const int8_t* rd = reads + (size_t)b * L;
+  const int32_t* pn = pens + (size_t)b * L;
+  const int8_t* rf = refs + (size_t)b * W;
+  const int nnp = -p.npen;
+  const int ma = LOCAL ? p.ma : 0;
+  const int hl0 = NEG + p.npen;  // see the narrow body
+  const int rows = min(rdlen, L);
+  // tiles that hold a live column (columns 0 .. min(wlen, W))
+  const int ntiles = min(NT, min(max(wlen, 0), W) / TC + 1);
+  int best = LOCAL ? 0 : NEG, brow = 0, bcol = 0;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int jt = tile * TC;
+    const int j0 = jt + lane * S;
+    const int j0ext = j0 * p.rdg_ext;
+    uint32_t* tr = trace + ((size_t)b * NT + tile) * L * 32 + lane;
+    const int2* ein = edge + ((size_t)((tile + 1) & 1) * B + b) * L;
+    int2* eout = edge + ((size_t)(tile & 1) * B + b) * L;
+    const bool hand_on = tile + 1 < ntiles;
+
+    int refc[S], keep[S], cap[S], hp[S], ft[S];
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      const int j = j0 + t;
+      refc[t] = (j >= 1 && j <= W) ? (int)rf[j - 1] : 4;
+      keep[t] = refc[t] >= 4 ? 0 : -1;
+      const bool ok = j < C && j <= wlen;
+      cap[t] = ok ? INT_MAX : NEG;
+      hp[t] = ok ? 0 : NEG;
+      ft[t] = NEG;
+    }
+    int hs = __shfl_up_sync(FULL, hp[S - 1], 1);
+    // H[i-1][jt-1] for lane 0's diagonal: row 0 of a live column is 0
+    int eprev = 0;
+
+    // this lane's row of the next 32: read code, match and mismatch
+    // score, and what the tile before handed over its right edge
+    auto own_row = [&](int r, int& c, int& m, int& x, int& eh, int& ci) {
+      c = 4; m = nnp; x = nnp; eh = LOW; ci = LOW;
+      if (r < rows) {
+        c = rd[r];
+        if (c < 4) { m = ma; x = -pn[r]; }
+        if (tile > 0) {
+          const int2 v = __ldcg(ein + r);
+          eh = v.x; ci = v.y;
+        }
+      }
+    };
+    int nc, nm, nx, neh, nci;
+    own_row(lane, nc, nm, nx, neh, nci);
+
+    for (int base = 0; base < rows; base += 32) {
+      const int my_c = nc, my_m = nm, my_x = nx, my_eh = neh, my_ci = nci;
+      own_row(base + 32 + lane, nc, nm, nx, neh, nci);
+      const int nr = min(32, rows - base);
+      for (int q = 0; q < nr; ++q) {
+        const int i = base + q + 1;
+        const int rc = __shfl_sync(FULL, my_c, q);
+        const int sm = __shfl_sync(FULL, my_m, q);
+        const int sx = __shfl_sync(FULL, my_x, q);
+        // H[i][jt-1], floored, and the scan's value up to column jt-1
+        const int eh = __shfl_sync(FULL, my_eh, q);
+        const int cin = __shfl_sync(FULL, my_ci, q);
+        const int gm = (i > p.gbar && i <= rdlen - p.gbar) ? 0 : NEG;
+        const int cu = gm - p.rfg_open;
+        const int c3 = gm - p.rdg_open;
+        const int hl = lane == 0 ? (tile == 0 ? hl0 : eprev) : hs;
+        eprev = eh;
+
+        int f[S], dg[S], ho[S], pre[S];
+        uint32_t wa = 0;
+        int run = LOW;
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          int s = refc[t] == rc ? sm : sx;
+          s = (s & keep[t]) | (nnp & ~keep[t]);
+          const int up = hp[t] + cu;
+          f[t] = max(up, ft[t]);
+          ft[t] = __viaddmax_s32(f[t], -p.rfg_ext, NEG);
+          wa = __funnelshift_l((uint32_t)(up - f[t]), wa, 1);
+          dg[t] = (t == 0 ? hl : hp[t - 1]) + s;
+          ho[t] = max(dg[t], f[t]);
+          run = __viaddmax_s32(ho[t], p.text[t], run);
+          pre[t] = run;
+        }
+        // the scan in window coordinates, seeded in lane 0 with what the
+        // tiles before found (LOW in the first tile)
+        int x = run + j0ext;
+        if (lane == 0) x = max(x, cin);
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1)
+          x = max(x, __shfl_up_sync(FULL, x, off));
+        int carry = __shfl_up_sync(FULL, x, 1);
+        if (lane == 0) carry = cin;
+        carry -= j0ext;
+
+        int e[S], h[S];
+        int key = 0;
+        uint32_t wb = 0;
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          const int excl = t == 0 ? carry : max(carry, pre[t - 1]);
+          e[t] = __viaddmax_s32(excl, p.ce[t] + gm, NEG);
+          h[t] = min(__vimax3_s32(ho[t], e[t], FLOOR), cap[t]);
+          if (LOCAL) key = max(key, h[t] * 512 + (511 - lane * S - t));
+        }
+        hs = __shfl_up_sync(FULL, h[S - 1], 1);
+        const int hleft = lane == 0 ? (tile == 0 ? LOW : eh) : hs;
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          if (LOCAL) wb = __funnelshift_l((uint32_t)(abs(h[t]) - 1), wb, 1);
+          const int hl2 = t == 0 ? hleft : h[t - 1];
+          wb = __funnelshift_l((uint32_t)(hl2 + c3 - e[t]), wb, 1);
+          wb = __funnelshift_l((uint32_t)(f[t] - h[t]), wb, 1);
+          wb = __funnelshift_l((uint32_t)(dg[t] - h[t]), wb, 1);
+          hp[t] = h[t];
+        }
+        __stcg(tr + (size_t)(i - 1) * 32, wb | (wa << T::OFF_A));
+        if (hand_on && lane == 31) __stcg(eout + (i - 1), make_int2(h[S - 1], x));
+        if (LOCAL) {
+          // smallest row, then smallest column: within a tile rows come
+          // in order, and a later tile has the larger columns
+          const int rkey = __reduce_max_sync(FULL, key);
+          const int sc = rkey >> 9;
+          if (sc > best || (sc == best && i < brow)) {
+            best = sc;
+            brow = i;
+            bcol = jt + 511 - (rkey & 511);
+          }
+        }
+      }
+    }
+    if (!LOCAL && rdlen >= 1 && rdlen <= L) {
+      // the last row's real columns of this tile, first column on ties
+      int key = INT_MIN;
+#pragma unroll
+      for (int t = 0; t < S; ++t)
+        if (j0 + t < C) key = max(key, hp[t] * 512 + (511 - lane * S - t));
+      key = __reduce_max_sync(FULL, key);
+      if (tile == 0 || (key >> 9) > best) {
+        best = key >> 9;
+        bcol = jt + 511 - (key & 511);
+      }
+    }
+    __syncwarp();  // the tile's stores are visible to all lanes of the warp
+  }
+
+  // the walk, as the narrow body's, over the tiled trace
+  int i = LOCAL ? brow : rdlen, j = bcol, state = 0, k = 0;
+  const int maxops = L + C;
+  uint8_t* orow = ops_out + (size_t)b * nops_bytes;
+  uint32_t opsw = 0;  // ops [wbase + 16 * lane, + 16)
+  int wbase = 0;
+  while (true) {
+    if (k - wbase >= 256) {
+      if (lane < 16) op_store(orow, wbase / 16 + lane, opsw, nops_bytes);
+      opsw = __shfl_down_sync(FULL, opsw, 16);
+      if (lane >= 16) opsw = 0;
+      wbase += 256;
+    }
+    const int kw = k - wbase;
+    const int ir = i - (state != 2 ? lane : 0);
+    const int jr = j - (state != 1 ? lane : 0);
+    const bool act = k + lane < maxops && ir > 0;
+    uint32_t bits = 0, a2 = 0;
+    if (act) {
+      const int li = min(ir - 1, L - 1);
+      const int jj = min(max(jr, 0), C - 1);
+      const int tl = jj / TC, jl = jj - tl * TC;
+      const int ln = jl / S, t = jl - ln * S;
+      const uint32_t w =
+          __ldcg(trace + (((size_t)b * NT + tl) * L + li) * 32 + ln);
+      bits = ((w >> (PB * (S - 1 - t))) ^ 0x7u) & ((1u << PB) - 1u);
+      a2 = ~(w >> (T::OFF_A + S - 1 - t)) & 1u;
+    }
+    const bool stop = LOCAL && (bits & 8u);
+    const bool cont =
+        state == 0 ? act && !stop && (bits & 1u) && jr > 0
+        : state == 1 ? act && !a2
+                     : act && !(bits & 4u);
+    const unsigned run = __ballot_sync(FULL, cont);
+    const int n = run == FULL ? 32 : __ffs(~run) - 1;
+    const bool act_n = (__ballot_sync(FULL, act) >> (n & 31)) & 1u;
+    const uint32_t bits_n = __shfl_sync(FULL, bits, n & 31);
+    const uint32_t a2_n = __shfl_sync(FULL, a2, n & 31);
+    if (state == 0) {
+      opsw |= op_fill(kw, n, lane, 1u);
+      i -= n; j -= n; k += n;
+      if (n == 32) continue;
+      if (!act_n || (LOCAL && (bits_n & 8u))) break;
+      const bool f_br = bits_n & 2u;
+      opsw |= op_fill(kw + n, 1, lane, f_br ? 2u : 3u);
+      ++k;
+      if (f_br) { state = a2_n ? 0 : 1; --i; }
+      else { state = (bits_n & 4u) ? 0 : 2; --j; }
+    } else {
+      const int steps = n + (n < 32 && act_n ? 1 : 0);
+      opsw |= op_fill(kw, steps, lane, state == 1 ? 2u : 3u);
+      if (state == 1) i -= steps; else j -= steps;
+      k += steps;
+      if (n == 32) continue;
+      if (!act_n) break;
+      state = 0;
+    }
+  }
+  op_store(orow, wbase / 16 + lane, opsw, nops_bytes);
+  for (int w = wbase / 16 + 32 + lane; 4 * w < nops_bytes; w += 32)
+    op_store(orow, w, 0u, nops_bytes);
+  if (lane != 0) return;
+  if (LOCAL) {
+    out[b] = best;
+    out[(size_t)B + b] = brow;
+    out[(size_t)2 * B + b] = bcol;
+    out[(size_t)3 * B + b] = j;
+    out[(size_t)4 * B + b] = i;
+  } else {
+    out[b] = best;
+    out[(size_t)B + b] = bcol;
+    out[(size_t)2 * B + b] = j;
+  }
+}
+
+template <int S, bool LOCAL>
+cudaError_t launch_wide(const void* reads, const void* pens,
+                        const void* rdlens, const void* refs,
+                        const void* wlens, int B, int L, int W, const Pen& p,
+                        void* out, void* ops, int nops_bytes, void* trace,
+                        size_t trace_size, cudaStream_t stream) {
+  if (trace_size < wide_scratch_bytes(B, L, W + 1, LOCAL))
+    return cudaErrorInvalidValue;
+  const int grid = (B + WARPS - 1) / WARPS;
+  sw_dp_wide_kernel<S, LOCAL><<<grid, WARPS * 32, 0, stream>>>(
+      (const int8_t*)reads, (const int32_t*)pens, (const int32_t*)rdlens,
+      (const int8_t*)refs, (const int32_t*)wlens, B, L, W,
+      wide_tiles(W + 1, LOCAL), p, (int32_t*)out, (uint8_t*)ops, nops_bytes,
+      (uint32_t*)trace,
+      (int2*)((uint32_t*)trace + wide_trace_words(B, L, W + 1, LOCAL)));
+  return cudaGetLastError();
+}
+
 template <int S, bool LOCAL>
 cudaError_t launch(const void* reads, const void* pens, const void* rdlens,
                    const void* refs, const void* wlens, int B, int L, int W,
@@ -360,9 +691,10 @@ cudaError_t launch(const void* reads, const void* pens, const void* rdlens,
   return cudaGetLastError();
 }
 
-// Picks the strip width for C = W + 1 columns and launches. Requires
-// L <= 160 (the op string is at most 32 words of 16 ops: L + C <= 512)
-// and C <= 288.
+// Picks the body and the strip width for C = W + 1 columns and launches:
+// the one-tile body for L <= L_NARROW and C <= 32 * S_MAX, else the wide
+// one, with the narrowest strip that covers C in the fewest tiles.
+// Requires 1 <= L <= L_MAX and C <= C_MAX.
 template <bool LOCAL>
 int dispatch(const void* reads, const void* pens, const void* rdlens,
              const void* refs, const void* wlens, int B, int L, int W,
@@ -370,21 +702,33 @@ int dispatch(const void* reads, const void* pens, const void* rdlens,
              size_t trace_size, void* stream) {
   if (B <= 0) return 0;
   const int C = W + 1;
-  if (L < 1 || L > 160 || W < 0 || C > 32 * S_MAX ||
+  if (L < 1 || L > L_MAX || W < 0 || C > C_MAX ||
       nops_bytes != (L + C + 3) / 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define SW_CASE(s)                                                          \
-  case s:                                                                   \
-    return (int)launch<s, LOCAL>(reads, pens, rdlens, refs, wlens, B, L, W, \
-                                 p, out, ops, nops_bytes, trace, trace_size, st);
-  switch ((C + 31) / 32) {
-    SW_CASE(1) SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5)
-    SW_CASE(6) SW_CASE(7) SW_CASE(8) SW_CASE(9)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define SW_CASE(fn, s)                                                    \
+  case s:                                                                 \
+    return (int)fn<s, LOCAL>(reads, pens, rdlens, refs, wlens, B, L, W, p, \
+                             out, ops, nops_bytes, trace, trace_size, st);
+  if (L <= L_NARROW && C <= 32 * S_MAX) {
+    switch ((C + 31) / 32) {
+      SW_CASE(launch, 1) SW_CASE(launch, 2) SW_CASE(launch, 3)
+      SW_CASE(launch, 4) SW_CASE(launch, 5) SW_CASE(launch, 6)
+      SW_CASE(launch, 7) SW_CASE(launch, 8) SW_CASE(launch, 9)
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nt = wide_tiles(C, LOCAL);
+  const int strip = (C + 32 * nt - 1) / (32 * nt);
+  if constexpr (!LOCAL) {  // local tiles stop at S_WIDE_LOCAL
+    switch (strip) { SW_CASE(launch_wide, 7) SW_CASE(launch_wide, 8) }
+  }
+  switch (strip) {
+    SW_CASE(launch_wide, 1) SW_CASE(launch_wide, 2) SW_CASE(launch_wide, 3)
+    SW_CASE(launch_wide, 4) SW_CASE(launch_wide, 5) SW_CASE(launch_wide, 6)
   }
 #undef SW_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace swdp

@@ -13,17 +13,20 @@
 // sw_dp.cuh; its head note says what the design does about that: fused
 // add-max instructions, trace bits by subtraction and funnel shift, the
 // read held by the warp, only the rdlen real rows, strips of any width,
-// the trace in a device-memory scratch, and a walk done by the whole
-// warp a run at a time.
+// the trace in a device-memory scratch, a walk done by the whole warp a
+// run at a time, and, for reads past 160 rows or windows past 287
+// columns, a sweep over column tiles.
 #include "sw_dp.cuh"
 
 // C entry point for ctypes. Shapes: reads int8 [B, L], pens int32 [B, L],
 // rdlens int32 [B], refs int8 [B, W], wlens int32 [B]; outputs out int32
 // [3, B] (rows: best, bestcol, start col) and ops uint8 [B, nops_bytes]
 // with nops_bytes = ceil((L + W + 1) / 4); trace is scratch of at least
-// trace_size = B * L * 128 bytes (twice that for W >= 256). Requires
-// L <= 160 and W <= 287. Launches on the stream and does not wait.
-// Returns the cudaError_t of the launch (0 on success).
+// trace_size bytes: for L <= 160 and W <= 287 (the narrow body) B * L * 128
+// (twice that for W >= 256), else (the wide body, column tiles of 256)
+// B * ceil((W + 1) / 256) * L * 128 + B * L * 16. Requires 1 <= L <= 1024
+// and W <= 4096. Launches on the stream and does not wait. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int sw_e2e_backtrace_launch(
     const void* reads, const void* pens, const void* rdlens, const void* refs,
     const void* wlens, int B, int L, int W, int rdg_open, int rdg_ext,

@@ -19,16 +19,20 @@
 // about that. Particular to local mode: the row's best cell is one
 // __reduce_max_sync over a key that packs score and column, and the stop
 // bit (H == 0) is a fourth bit beside the cell's other trace bits, so the
-// walk reads one word a cell.
+// walk reads one word a cell. Reads past 160 rows and windows past 287
+// columns are swept in column tiles, and the best cell is merged across
+// them by score, then row.
 #include "sw_dp.cuh"
 
 // C entry point for ctypes. Shapes: reads int8 [B, L], pens int32 [B, L],
 // rdlens int32 [B], refs int8 [B, W], wlens int32 [B]; outputs out int32
 // [5, B] (rows: best, bestrow, bestcol, start col, start row) and ops
 // uint8 [B, nops_bytes] with nops_bytes = ceil((L + W + 1) / 4); trace is
-// scratch of at least trace_size = B * L * 128 bytes (twice that for
-// W >= 192). Requires L <= 160 and W <= 287. Launches on the stream and
-// does not wait. Returns the cudaError_t of the launch (0 on success).
+// scratch of at least trace_size bytes: for L <= 160 and W <= 287 (the
+// narrow body) B * L * 128 (twice that for W >= 192), else (the wide body,
+// column tiles of 192) B * ceil((W + 1) / 192) * L * 128 + B * L * 16.
+// Requires 1 <= L <= 1024 and W <= 4096. Launches on the stream and does
+// not wait. Returns the cudaError_t of the launch (0 on success).
 extern "C" int sw_local_backtrace_launch(
     const void* reads, const void* pens, const void* rdlens, const void* refs,
     const void* wlens, int B, int L, int W, int rdg_open, int rdg_ext,

@@ -41,6 +41,50 @@ class ReferenceMap:
             return None
         return int(self.frag_refid[i]), int(self.frag_ref[i] + (joff - self.frag_joined[i]))
 
+    def ref_to_joined(self, refid: int, refoff: int) -> int | None:
+        """Map a per-reference offset back into the joined text; None if the
+        position falls in an N gap (no fragment covers it)."""
+        sel = np.flatnonzero(self.frag_refid == refid)
+        for i in sel:
+            if self.frag_ref[i] <= refoff < self.frag_ref[i] + self.frag_len[i]:
+                return int(self.frag_joined[i] + (refoff - self.frag_ref[i]))
+        return None
+
+    def ref_window(self, text: np.ndarray, refid: int, start: int,
+                   count: int) -> np.ndarray:
+        """Decode `count` chars of reference `refid` starting at per-ref
+        offset `start` into int8 codes, with positions outside any
+        fragment (N gaps, before the reference's start, past its end) as
+        4: the analog of BitPairReference::getStretchNaive
+        (reference.cpp:377-422), which is what lets the DP align across N
+        runs. `text` is the joined (N-free) text the fragments index
+        into."""
+        out = np.full(count, 4, np.int8)
+        sel = np.flatnonzero(self.frag_refid == refid)
+        end = start + count
+        for i in sel:
+            fs = int(self.frag_ref[i])
+            fe = fs + int(self.frag_len[i])
+            lo = max(start, fs)
+            hi = min(end, fe)
+            if lo < hi:
+                j = int(self.frag_joined[i])
+                out[lo - start : hi - start] = text[
+                    j + (lo - fs) : j + (hi - fs)
+                ]
+        return out
+
+    def ref_fragment_bounds(self, refid: int, refoff: int):
+        """(joined_start, joined_end) of the fragment containing refoff, or
+        None."""
+        sel = np.flatnonzero(self.frag_refid == refid)
+        for i in sel:
+            if self.frag_ref[i] <= refoff < self.frag_ref[i] + self.frag_len[i]:
+                return int(self.frag_joined[i]), int(
+                    self.frag_joined[i] + self.frag_len[i]
+                )
+        return None
+
     def joined_to_ref_batch(self, joffs: np.ndarray, qlens: np.ndarray):
         """Vectorized joined->ref mapping.
 

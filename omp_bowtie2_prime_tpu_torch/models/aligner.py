@@ -14,13 +14,19 @@ for its unpaired path on one device, end to end or, with
                        and host rank/frame, device search + resolve
   extend               the DP + backtrace kernel (ops/sw_cuda.py: the
                        end-to-end or the local one) on the narrow
-                       windows, then the wide escalation
+                       windows, then the wide escalation; reads past
+                       l_max (up to l_hard) and windows past dp_cols are
+                       grouped by shape and go to the same kernel
+  bridge               problems whose window crosses an N run inside a
+                       reference (or, with --overhang, a reference's
+                       end) are framed in reference coordinates with an
+                       N-filled window, take the same kernel, and are
+                       finished in reference space
   finish               native CIGAR/MD (soft clips in local mode),
                        tighten, MAPQ V2, results
 
 Rounds: 0, 1, then the half-read rescue round. The results are those of
-``TPUAligner.align_batch`` read for read. Anything outside this slice
-raises NotImplementedError naming its ROADMAP.md item.
+``TPUAligner.align_batch`` read for read.
 """
 
 from __future__ import annotations
@@ -43,12 +49,6 @@ from ..utils.metrics import PhaseTimers, PipelineMetrics
 from ..utils.scoring import SIMPLE_FUNC_SQRT, Scoring, SimpleFunc
 
 
-def _roadmap(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, port queue: {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class AlignOpts:
     """Alignment policy; fields and defaults as the JAX package's."""
@@ -61,7 +61,9 @@ class AlignOpts:
     max_elts_per_read: int = 400  # maxIters
     max_dp_per_read: int = 300  # maxDp
     maxhalf: int = 15  # --dpad
-    l_max: int = 160  # longest read of the slice (ALN_MAX_ROWS)
+    l_max: int = 160  # longest read of the hot DP shape (ALN_MAX_ROWS)
+    l_hard: int = 1024  # longest read that aligns; longer ones come out
+    # unaligned
     minsc_clamp: int = -254  # u8-build minimum-score clamp
     nrounds: int = 2  # -R
     dps: int = 15  # -D extension fail-streak budget
@@ -74,6 +76,10 @@ class AlignOpts:
     resolve_expand: float = 1.0  # SA slots per seed lane
     dp_cols: int = 200  # narrow DP window capacity
     local: bool = False  # --local: soft-clipping local alignment
+    # --overhang: alignments may hang off a reference's ends; the
+    # positions past the end align against N and the overhanging read
+    # chars are soft-clipped in the record
+    overhang: bool = False
 
 
 class LazyStats:
@@ -153,10 +159,10 @@ class Candidate(_LazyCigar):
     __slots__ = ("score", "fw", "endj", "problem", "bc", "ops_row",
                  "start_col", "resolved", "valid", "joined_start", "span",
                  "refid", "refoff", "_cigar", "cigar_str", "stats",
-                 "row_lo", "row_hi")
+                 "bridge", "row_lo", "row_hi")
 
     def __init__(self, score, fw, endj, problem, bc, ops_row=None,
-                 start_col=-1, row_lo=0, row_hi=-1):
+                 start_col=-1, bridge=None, row_lo=0, row_hi=-1):
         self.score = score
         self.fw = fw
         self.endj = endj
@@ -173,6 +179,9 @@ class Candidate(_LazyCigar):
         self._cigar = None
         self.cigar_str = ""
         self.stats = {}
+        # (refid, ref_lo, window codes) for a problem DP'd in reference
+        # coordinates over an N-filled window (see _run_bridge)
+        self.bridge = bridge
         # local mode: aligned read rows [row_lo, row_hi); the soft clips
         # are row_lo leading and rdlen - row_hi trailing chars (row_hi =
         # -1 means the whole read: end-to-end mode)
@@ -195,6 +204,10 @@ class Problems:
 
     def __len__(self):
         return len(self.src)
+
+    def take(self, idxs):
+        return Problems(self.src[idxs], self.wstart[idxs], self.wlen[idxs],
+                        self.diag[idxs])
 
 
 class CandTable:
@@ -236,7 +249,7 @@ class CandTable:
 
 
 P_CAP = 32768  # minimum rows of the device problem table
-DP_CHUNK = 8192  # DP problems per kernel launch (bounds device memory)
+BRIDGE_EXTRA_MAX = 96  # N-gap chars a bridge window may absorb a side
 
 
 def expand_oriented_mat(pkfw: torch.Tensor, lens_c: torch.Tensor):
@@ -279,9 +292,9 @@ class TorchAligner:
         self.opts = opts or AlignOpts()
         self.device = torch.device(device)
         fr = fm.refmap.frag_refid
-        if len(fr) > 1 and bool((fr[1:] == fr[:-1]).any()):
-            raise _roadmap("references with intra-reference N gaps",
-                           "long and wide windows, N bridge")
+        # an N run inside a reference splits it into fragments: windows
+        # across one take the bridge (see _run_bridge)
+        self._intra_gaps = bool(len(fr) > 1 and (fr[1:] == fr[:-1]).any())
         self.idx = GpuIndex.from_host(fm, self.device)
         self.text = dna.unpack_2bit(fm.ref_words, fm.n)
         self.mm_tab = self.sc.mm_table()
@@ -328,6 +341,9 @@ class TorchAligner:
         o = self.opts
         sl = o.seed_len
         idx = np.asarray(list(indices), np.int64)
+        # a read past l_hard is cut in the matrices and never aligns
+        # (read_ok): it is not seeded
+        idx = idx[self._mat_lens[idx] <= self._mat_reads.shape[1]]
         lens = self._mat_lens[idx].astype(np.int64)
         rsel, d, eff_s = self._seed_grid(idx, lens, roundi)
         S = len(rsel)
@@ -563,18 +579,33 @@ class TorchAligner:
 
     # ---------------- P7: DP + backtrace ----------------
 
-    def _run_dp_bt(self, problems, cols: int | None = None):
-        """The DP kernel over every problem's window: returns (best,
-        bestcol, ops list, startcols, rows), ops as the JAX package hands
-        them on: an int M count for gapless rows, the unpacked op codes
-        (with the same zero padding) for rows with a gap. rows is None
-        end to end and (bestrow, startrow), the soft-clip endpoints, in
-        local mode."""
+    def _launch_shape(self, wlens, rdlens):
+        """(cols, lmax) for _run_dp_bt of the one launch shape that holds
+        these windows and reads: None (dp_cols, l_max) while the widest
+        and the longest fit the hot shape, else that extent rounded up to
+        32."""
+        o = self.opts
+        w, ln = int(np.max(wlens)), int(np.max(rdlens))
+        return (None if w <= o.dp_cols else -(-w // 32) * 32,
+                None if ln <= o.l_max else -(-ln // 32) * 32)
+
+    def _run_dp_bt(self, problems, cols: int | None = None,
+                   lmax: int | None = None, refs: np.ndarray | None = None):
+        """The DP kernel over every problem's window at one shape, ``lmax``
+        read rows (default l_max) by ``cols`` window columns (default
+        dp_cols): returns (best, bestcol, ops list, startcols, rows), ops
+        as the JAX package hands them on: an int M count for gapless rows,
+        the unpacked op codes (with the same zero padding) for rows with
+        a gap. rows is None end to end and (bestrow, startrow), the
+        soft-clip endpoints, in local mode. ``refs`` (int8 [n, cols])
+        gives the windows' codes where they are not pieces of the joined
+        text (the bridge's N-filled windows). A problem's result depends
+        on its own read and window only, not on the shape or on what it
+        shares a launch with; the list is cut into launches by
+        sw_cuda.max_batch, which bounds the kernels' scratch."""
         local = self.opts.local
+        L = lmax or self.opts.l_max
         W = cols or self.opts.dp_cols
-        if W + 1 > sw_cuda.C_MAX:
-            raise _roadmap(f"DP windows wider than {sw_cuda.C_MAX - 1}",
-                           "long and wide windows, N bridge")
         n = len(problems)
         best = np.full(n, sw.NEG, np.int64)
         bestcol = np.zeros(n, np.int32)
@@ -583,24 +614,34 @@ class TorchAligner:
         rows = ((np.zeros(n, np.int32), np.zeros(n, np.int32))
                 if local else None)
         rdlens = self._mat_lens[problems.src // 2].astype(np.int32)
-        for lo in range(0, n, DP_CHUNK):
-            hi = min(lo + DP_CHUNK, n)
+        chunk = sw_cuda.max_batch(L, W + 1, local, self.device.type)
+        wmat = self._dev_mat.shape[1]
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
             with self.timers.phase("dp.put"):
                 d_src = self._to_dev(problems.src[lo:hi])
-                d_ws = self._to_dev(problems.wstart[lo:hi])
                 d_wl = self._to_dev(problems.wlen[lo:hi].astype(np.int32))
                 d_rl = self._to_dev(rdlens[lo:hi])
-                pk = self._dev_mat[d_src]  # [m, l_max]: code | pen << 4
+                pk = self._dev_mat[d_src]  # [m, wmat]: code | pen << 4
+                if L <= wmat:
+                    pk = pk[:, :L]
+                else:  # more rows than this batch's matrices are wide
+                    pk = torch.nn.functional.pad(pk, (0, L - wmat), value=4)
                 reads = (pk & 0xF).to(torch.int8).contiguous()
                 pens = (pk >> 4).to(torch.int32).contiguous()
-                refs = sw.gather_ref_windows(self.idx.ref_words, d_ws, d_wl, W)
+                if refs is None:
+                    d_refs = sw.gather_ref_windows(
+                        self.idx.ref_words,
+                        self._to_dev(problems.wstart[lo:hi]), d_wl, W)
+                else:
+                    d_refs = self._to_dev(refs[lo:hi])
                 if local:
                     b, brow, bc, ops, stc, srow = sw_cuda.sw_local_backtrace(
-                        reads, pens, d_rl, refs, d_wl, self.swp)
+                        reads, pens, d_rl, d_refs, d_wl, self.swp)
                     small = torch.stack([b, bc, stc, brow, srow])
                 else:
                     b, bc, ops, stc = sw_cuda.sw_e2e_backtrace(
-                        reads, pens, d_rl, refs, d_wl, self.swp)
+                        reads, pens, d_rl, d_refs, d_wl, self.swp)
                     small = torch.stack([b, bc, stc])
             with self.timers.phase("dp.wait"):
                 small = small.cpu().numpy()  # one copy for the [B] results
@@ -680,29 +721,38 @@ class TorchAligner:
         return results
 
     def build_read_matrices(self, reads) -> None:
-        """Per-batch oriented read/penalty matrices [2n, l_max] (row
-        2*ri fw, 2*ri+1 rc) on the host, and the packed fw rows on the
-        device, expanded there to both orientations."""
+        """Per-batch oriented read/penalty matrices [2n, W] (row 2*ri fw,
+        2*ri+1 rc) on the host, and the packed fw rows on the device,
+        expanded there to both orientations. W is l_max, or the batch's
+        longest read rounded up to 32 where that is longer, at most
+        l_hard: a read past l_hard is cut there (and comes out unaligned:
+        read_ok in _frame_consts)."""
         o = self.opts
         n = len(reads)
         lens = np.fromiter((len(rd.seq) for rd in reads), np.int32, n)
-        if n and int(lens.max()) > o.l_max:
-            raise _roadmap(f"reads longer than {o.l_max} bp",
-                           "long and wide windows, N bridge")
+        longest = int(lens.max()) if n else 0
         L = o.l_max
+        if longest > L:
+            L = min(o.l_hard, ((longest + 31) // 32) * 32)
         flat_r = (np.concatenate([rd.seq for rd in reads])
                   if n else np.zeros(0, np.int8))
         flat_q = (np.concatenate([rd.qual for rd in reads])
                   if n else np.zeros(0, np.uint8))
-        clipped = lens.astype(np.int64)
-        starts = np.cumsum(clipped) - clipped
-        pos = np.arange(int(clipped.sum()), dtype=np.int64)
-        pos -= np.repeat(starts, clipped)
-        flat_p = self.mm_tab[flat_q]
+        # the per-read seeds hash the whole read, cut or not
         self._rdseed = refrng.gen_rand_seeds_flat(
             flat_r, flat_q, lens, [rd.name for rd in reads],
             self.opts.rng_seed,
         ) if n else np.zeros(0, np.uint32)
+        clipped = np.minimum(lens, L).astype(np.int64)
+        starts = np.cumsum(clipped) - clipped
+        pos = np.arange(int(clipped.sum()), dtype=np.int64)
+        pos -= np.repeat(starts, clipped)
+        if longest > L:  # drop the tails of reads past the hard cap
+            starts_f = np.cumsum(lens.astype(np.int64)) - lens
+            keep = (np.arange(len(flat_r), dtype=np.int64)
+                    - np.repeat(starts_f, lens)) < L
+            flat_r, flat_q = flat_r[keep], flat_q[keep]
+        flat_p = self.mm_tab[flat_q]
         rev_src = np.repeat(starts + clipped - 1, clipped) - pos
         mask = np.arange(L, dtype=np.int32)[None, :] < clipped[:, None]
         mat_r = np.full((2 * n, L), 4, np.int8)
@@ -755,7 +805,10 @@ class TorchAligner:
         mgn_all = mg_u[uinv]
         mgw_all = 2 * mgn_all
         thr_all = -(gap_const + (mgn_all + 1) * gap_lin)
-        read_ok = lens_all <= o.l_max
+        # any read up to l_hard aligns: problems of reads up to l_max in
+        # windows up to dp_cols take the hot shape, the others their
+        # shape class
+        read_ok = lens_all <= o.l_hard
         out = (lens_all, mgn_all, mgw_all, thr_all, read_ok)
         self._fc_cache = (minscs, out)
         return out
@@ -889,12 +942,63 @@ class TorchAligner:
         """P7 + P8a: batched DP, wide escalation, -D streak, candidate
         collection. Returns (cands, CandTable | None)."""
         o = self.opts
+        # windows across an N run inside a reference (and, with
+        # --overhang, off a reference's end) leave the joined text: see
+        # _run_bridge
+        bridge_cands = []
+        bi = self._bridge_problem_indices(problems, mgn_all)
+        if len(bi):
+            bridge_probs = problems.take(bi)
+            keep = np.ones(len(problems), bool)
+            keep[bi] = False
+            problems = problems.take(np.flatnonzero(keep))
+            bridge_cands = self._run_bridge(minscs, bridge_probs, mgn_all)
+            if not len(problems):
+                cands = [{} for _ in range(n)]
+                for ri, key, cand in bridge_cands:
+                    if key not in cands[ri]:
+                        cands[ri][key] = cand
+                return cands, None
         lens_p = self._mat_lens[problems.src // 2]
-        if bool(((problems.wlen > o.dp_cols) | (lens_p > o.l_max)).any()):
-            raise _roadmap(f"DP windows wider than {o.dp_cols}",
-                           "long and wide windows, N bridge")
+        irr_mask = (problems.wlen > o.dp_cols) | (lens_p > o.l_max)
         with self.timers.phase("extendDP"):
-            best, bestcol, ops, startcols, rows = self._run_dp_bt(problems)
+            if not irr_mask.any():
+                best, bestcol, ops, startcols, rows = self._run_dp_bt(
+                    problems)
+            else:
+                # the hot shape for the regular problems; the others in
+                # groups of reads whose lengths differ by less than 2x,
+                # each launch as long as its longest read and as wide as
+                # its widest window (on the card the kernel computes only
+                # the rows of a read and the column tiles of a window, so
+                # a shared shape costs scratch, not time; on the CPU the
+                # plain version computes the whole shape, hence the groups)
+                self.metrics.add(dps_irregular=int(irr_mask.sum()))
+                n_all = len(problems)
+                best = np.full(n_all, sw.NEG, np.int64)
+                bestcol = np.zeros(n_all, np.int32)
+                startcols = np.zeros(n_all, np.int32)
+                ops = [None] * n_all
+                rows = ((np.zeros(n_all, np.int32), np.zeros(n_all, np.int32))
+                        if o.local else None)
+                group = np.ceil(np.log2(np.maximum(lens_p, 1))).astype(
+                    np.int64)
+                group[lens_p <= o.l_max] = 0  # short reads, wide windows
+                group[~irr_mask] = -1  # the hot shape
+                for g in np.unique(group).tolist():
+                    idxs = np.flatnonzero(group == g)
+                    cols, lm = self._launch_shape(
+                        problems.wlen[idxs], lens_p[idxs])
+                    b, bc, op, stc, rws = self._run_dp_bt(
+                        problems.take(idxs), cols=cols, lmax=lm)
+                    best[idxs] = b
+                    bestcol[idxs] = bc
+                    startcols[idxs] = stc
+                    if rows is not None:
+                        rows[0][idxs] = rws[0]
+                        rows[1][idxs] = rws[1]
+                    for t, i in enumerate(idxs.tolist()):
+                        ops[i] = op[t]
 
         # escalation: rerun with the full reference rect only the problems
         # it could change (narrow best at/below the window-exit gap cost,
@@ -917,16 +1021,15 @@ class TorchAligner:
             )
             wide_probs = Problems(problems.src[esc], ws, we - ws,
                                   problems.diag[esc])
-            wmax = int(wide_probs.wlen.max())
-            wcols = None if wmax <= o.dp_cols else ((wmax + 31) // 32) * 32
+            wcols, wlmax = self._launch_shape(wide_probs.wlen, lens_p[esc])
             self.metrics.add(
                 dps_wide=len(esc),
                 dp_cells=int((lens_p[esc].astype(np.int64)
                               * wide_probs.wlen).sum()),
             )
             with self.timers.phase("extendDPWide"):
-                b, bc, op, stc, rws = self._run_dp_bt(wide_probs,
-                                                      cols=wcols)
+                b, bc, op, stc, rws = self._run_dp_bt(
+                    wide_probs, cols=wcols, lmax=wlmax)
             problems.wstart[esc] = ws
             problems.wlen[esc] = wide_probs.wlen
             best[esc] = b
@@ -991,6 +1094,10 @@ class TorchAligner:
             riv_e = riv[emit]
             counts = np.bincount(riv_e, minlength=n)
             is_single = counts[riv_e] == 1
+            if bridge_cands:  # a read with a bridge entry is not single
+                br = np.zeros(n, bool)
+                br[[bri for bri, _k, _c in bridge_cands]] = True
+                is_single &= ~br[riv_e]
             sg = np.flatnonzero(is_single)
             if len(sg):
                 ps = pis[sg]
@@ -1028,7 +1135,190 @@ class TorchAligner:
                     row_hi=int(rows[0][pi]) if rows is not None else -1,
                 )
         _t_cc.__exit__(None, None, None)
+        # bridge candidates join after the main stream
+        for ri, key, cand in bridge_cands:
+            if key not in cands[ri]:
+                cands[ri][key] = cand
         return cands, table
+
+    # ---------------- N-bridge DP ----------------
+    # The joined text holds no N: a run of N inside a reference splits it
+    # into fragments. The reference aligner's DP windows decode such
+    # positions as code 4, so its reads align across short N runs, each N
+    # column a mismatch at the N penalty, capped by nCeil. Problems whose
+    # window spans a boundary between fragments of one reference are
+    # therefore framed again in that reference's coordinates, with an
+    # explicit N-filled window, and finished there.
+
+    def _bridge_problem_indices(self, problems, mgn_all) -> np.ndarray:
+        """Indices of problems whose joined window crosses a boundary
+        between fragments of the same reference (an N run) and, with
+        --overhang, of problems whose unclipped window reaches outside
+        the reference's [0, reflen)."""
+        if len(problems) == 0:
+            return np.zeros(0, np.int64)
+        sel = np.zeros(len(problems), bool)
+        rm = self.fm.refmap
+        if self._intra_gaps:
+            ws = problems.wstart
+            we = ws + problems.wlen
+            fi_s = np.searchsorted(rm.frag_joined, ws, side="right") - 1
+            fi_e = np.searchsorted(rm.frag_joined, we - 1, side="right") - 1
+            sel |= (fi_s != fi_e) & (
+                rm.frag_refid[fi_s] == rm.frag_refid[fi_e])
+        if self.opts.overhang:
+            fi_d = np.searchsorted(
+                rm.frag_joined, problems.diag, side="right") - 1
+            fi_d = np.clip(fi_d, 0, None)
+            rid = rm.frag_refid[fi_d]
+            ref_diag = rm.frag_ref[fi_d] + (
+                problems.diag - rm.frag_joined[fi_d])
+            mg = mgn_all[problems.ri]
+            ln = self._mat_lens[problems.ri].astype(np.int64)
+            sel |= (ref_diag - mg < 0) | (
+                ref_diag + ln + mg > rm.reflens[rid])
+        return np.flatnonzero(sel)
+
+    def _run_bridge(self, minscs, probs, mgn_all) -> list:
+        """DP the bridge problems over N-filled windows in reference
+        coordinates; returns [(ri, key, Candidate)] for the endpoints that
+        reach the read's minimum score."""
+        rm = self.fm.refmap
+        o = self.opts
+        ws = probs.wstart
+        we = ws + probs.wlen
+        fi_s = np.searchsorted(rm.frag_joined, ws, side="right") - 1
+        fi_e = np.searchsorted(rm.frag_joined, we - 1, side="right") - 1
+        map_lo = rm.frag_ref[fi_s] + (ws - rm.frag_joined[fi_s])
+        map_hi = rm.frag_ref[fi_e] + (we - 1 - rm.frag_joined[fi_e]) + 1
+        # every window is anchored on the fragment of its seed diagonal:
+        # the joined window's other end may lie across a long N run or in
+        # another reference, and such spans are clamped, not dropped (an
+        # alignment cannot bridge more gap chars than its score allows)
+        fi_d = np.clip(np.searchsorted(
+            rm.frag_joined, probs.diag, side="right") - 1, 0, None)
+        rid_d = rm.frag_refid[fi_d].astype(np.int64)
+        ref_diag = rm.frag_ref[fi_d] + (probs.diag - rm.frag_joined[fi_d])
+        mg = mgn_all[probs.ri]
+        ln = self._mat_lens[probs.ri].astype(np.int64)
+        if o.overhang:
+            # the full margins, positions off the reference included
+            # (N-filled by ref_window, soft-clipped at the finish)
+            want_lo = ref_diag - mg
+            want_hi = ref_diag + ln + mg
+        else:
+            want_lo = np.maximum(ref_diag - mg, 0)
+            want_hi = np.minimum(ref_diag + ln + mg, rm.reflens[rid_d])
+        X = BRIDGE_EXTRA_MAX
+        same_s = rm.frag_refid[fi_s] == rid_d
+        same_e = rm.frag_refid[fi_e] == rid_d
+        ref_lo = np.maximum(
+            want_lo - X,
+            np.minimum(np.where(same_s, map_lo, want_lo), want_lo))
+        ref_hi = np.minimum(
+            want_hi + X,
+            np.maximum(np.where(same_e, map_hi, want_hi), want_hi))
+        width = (ref_hi - ref_lo).astype(np.int64)
+        keep = np.flatnonzero(width > 0)
+        if not len(keep):
+            return []
+        kept = probs.take(keep)
+        rdl = self._mat_lens[kept.src // 2].astype(np.int64)
+        n_b = len(keep)
+        C = int(-(-int(width[keep].max()) // 32) * 32)
+        L = self._launch_shape(width[keep], rdl)[1]
+        refs = np.full((n_b, C), 4, np.int8)
+        for t, k in enumerate(keep.tolist()):
+            refs[t, : width[k]] = rm.ref_window(
+                self.text, int(rid_d[k]), int(ref_lo[k]), int(width[k]))
+        kept.wlen = width[keep].astype(np.int32)
+        self.metrics.add(dps_bridge=n_b)
+        with self.timers.phase("extendDPBridge"):
+            best, bestcol, ops, startcol, rows = self._run_dp_bt(
+                kept, cols=C, lmax=L, refs=refs)
+        res = []
+        for t in range(n_b):
+            k = int(keep[t])
+            ri = int(kept.ri[t])
+            if best[t] < minscs[ri]:
+                continue
+            rid = int(rid_d[k])
+            end_ref = int(ref_lo[k]) + int(bestcol[t])
+            # dedupe key: the joined end position where there is one, else
+            # a key in reference space (negative: it cannot collide)
+            jend = rm.ref_to_joined(rid, end_ref - 1)
+            key_end = jend + 1 if jend is not None else -(
+                (rid + 1) << 40) - end_ref
+            fwb = bool(kept.fw[t])
+            cand = Candidate(
+                score=int(best[t]), fw=fwb, endj=key_end,
+                problem=dict(src=int(kept.src[t]), wstart=int(ws[k]),
+                             wlen=int(width[k]), diag=int(probs.diag[k])),
+                bc=int(bestcol[t]), ops_row=ops[t],
+                start_col=int(startcol[t]),
+                bridge=(rid, int(ref_lo[k]), refs[t]),
+                row_lo=int(rows[1][t]) if rows is not None else 0,
+                row_hi=int(rows[0][t]) if rows is not None else -1,
+            )
+            res.append((ri, (fwb, key_end), cand))
+        return res
+
+    def _finish_bridge(self, c: Candidate) -> None:
+        """Finish one bridge candidate in reference space (no joined
+        mapping and no straddle check: its window lies within one
+        reference)."""
+        rid, ref_lo, refw = c.bridge
+        if isinstance(c.ops_row, int):
+            cigar = [("M", c.ops_row)] if c.ops_row > 0 else []
+        else:
+            cigar = sw.ops_to_cigar(c.ops_row)
+        if not cigar:
+            return
+        src = c.problem["src"]
+        rdlen = int(self._mat_lens[src // 2])
+        read = self._mat_reads[src][:rdlen]
+        row_hi = c.row_hi if c.row_hi >= 0 else rdlen
+        ql, qr = c.row_lo, rdlen - row_hi
+        if ql or qr:
+            read = read[ql:row_hi]  # local: the flanks are soft clips
+        cigar = cigar_util.left_align_cigar(cigar, read, refw, c.start_col)
+        stats = cigar_util.alignment_stats(read, refw, c.start_col, cigar)
+        if stats["ns"] > self.sc.n_ceil_for(rdlen):
+            return  # too many Ns
+        refoff = int(ref_lo + c.start_col)
+        reflen = int(self.fm.refmap.reflens[rid])
+        if self.opts.overhang and (
+            refoff < 0 or refoff + stats["ref_span"] > reflen
+        ):
+            # soft-clip the columns off the reference for the record; the
+            # score stays the full DP's and ns / XN the full alignment's,
+            # only CIGAR, POS, MD, NM and XM follow the trimmed span
+            cig2, refoff2, lead, trail = cigar_util.clip_off_end(
+                cigar, refoff, reflen)
+            if not cig2:
+                return
+            read2 = read[lead : len(read) - trail] if (lead or trail) \
+                else read
+            st2 = cigar_util.alignment_stats(
+                read2, refw, refoff2 - int(ref_lo), cig2)
+            st2["ns"] = stats["ns"]
+            st2["xn"] = stats["xn"]
+            stats = st2
+            ql += lead
+            qr += trail
+            cigar = cig2
+            refoff = refoff2
+        c.refid = rid
+        c.refoff = refoff
+        c.span = stats["ref_span"]
+        js = self.fm.refmap.ref_to_joined(rid, c.refoff)
+        c.joined_start = js if js is not None else -1
+        if ql or qr:
+            cigar = (([("S", ql)] if ql else []) + cigar
+                     + ([("S", qr)] if qr else []))
+        c.cigar = cigar
+        c.stats = stats
+        c.valid = True
 
     # ---------------- P8: finish ----------------
 
@@ -1045,7 +1335,11 @@ class TorchAligner:
         self.metrics.add(backtraces=len(todo))
         for c in todo:
             c.resolved = True
-        self._finish_candidates_native(todo)
+            if c.bridge is not None:  # finished in reference space
+                self._finish_bridge(c)
+        todo = [c for c in todo if c.bridge is None]
+        if todo:
+            self._finish_candidates_native(todo)
 
     @staticmethod
     def _ops_matrix(ops_rows) -> np.ndarray:
@@ -1276,7 +1570,15 @@ class TorchAligner:
                     cand.stats, 1, cand.span,
                 )
         while pend:
-            self.backtrace_batch([ranked[i][1] for ranked, i in pend.values()])
+            batch = []
+            for ranked, i in pend.values():
+                batch.append(ranked[i][1])
+                if i + 1 < len(ranked) and ranked[i + 1][1].bridge is not None:
+                    # a runner-up over an N-filled window may yet fail
+                    # nCeil: validate it now, so that a rejected one
+                    # never sets XS or MAPQ
+                    batch.append(ranked[i + 1][1])
+            self.backtrace_batch(batch)
             nxt = {}
             for ri, (ranked, i) in pend.items():
                 cand = ranked[i][1]

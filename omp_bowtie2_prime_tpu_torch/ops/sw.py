@@ -4,7 +4,7 @@ and the plain PyTorch versions of the two DP + backtrace kernels.
 Counterpart of omp_bowtie2_prime_tpu/ops/sw.py. ``sw_e2e_tb_plain`` and
 ``sw_e2e_backtrace_plain`` are a row loop that computes exactly what the
 JAX package's ``sw_e2e_tb_batch`` / ``sw_e2e_backtrace_batch`` compute,
-expression for expression:
+expression for expression, at any shape (read rows L, window columns W):
 
     F[i][j]  = max(H[i-1][j] - rfg_open + gmask, F[i-1][j] - rfg_ext)
     Ho[i][j] = max(H[i-1][j-1] + s(i, j), F[i][j])
@@ -59,14 +59,17 @@ class SWParams:
 def gather_ref_windows(ref_words: torch.Tensor, wstart: torch.Tensor,
                        wlen: torch.Tensor, C: int) -> torch.Tensor:
     """[B] joined window starts -> [B, C] int8 base codes from the 2-bit
-    packed text (int64 words), 4 at and beyond wlen. ref_words carries
-    zero tail padding; the word slice start clamps like JAX's
-    dynamic_slice."""
+    packed text (int64 words), 4 at and beyond wlen, at any C. ref_words
+    carries 128 words (2,048 bases) of zero tail padding, which a window
+    of up to 2,000 columns never leaves; the word index of a wider one is
+    clamped to the tensor's last word (padding), and those columns lie
+    beyond wlen. Requires 0 <= wstart and wstart + wlen <= the text's
+    length."""
     W16 = (C + 15) // 16 + 1
     nw = ref_words.shape[0]
-    w0 = (wstart >> 4).clamp(0, nw - W16)
     span = torch.arange(W16, device=wstart.device, dtype=torch.int64)
-    words = ref_words[w0[:, None] + span[None, :]]  # [B, W16]
+    words = ref_words[((wstart >> 4)[:, None] + span[None, :])
+                      .clamp(0, nw - 1)]  # [B, W16]
     shifts = torch.arange(16, device=wstart.device, dtype=torch.int64) * 2
     unp = ((words[:, :, None] >> shifts) & 3).reshape(len(wstart), W16 * 16)
     col = torch.arange(C, device=wstart.device, dtype=torch.int64)

@@ -8,15 +8,30 @@ start col). ``sw_local_backtrace`` returns what its
 ops, start col, start row). On CUDA tensors each launches its kernel on
 the current stream (or raises); on CPU tensors it runs the plain version
 in ops/sw.py. ``LAUNCHES`` counts the launches of the end-to-end kernel,
-``LAUNCHES_LOCAL`` those of the local one.
+``LAUNCHES_LOCAL`` those of the local one, and ``SHAPES`` the same launches
+by (local, L, C), which tells the narrow body's from the wide body's
+(``is_narrow``).
+
+The kernels take every shape the aligner frames: reads of up to
+``L_MAX`` = 1024 rows and DPs of up to ``C_MAX`` = 4097 columns (window
++ column 0). Up to L = 160 and C = 288 a problem's row lives in its
+warp's registers (the narrow body); past that the warp sweeps column
+tiles of at most 256 columns end to end and 192 in local mode (the wide
+body). A shape past the limits raises.
 
 A launch keeps its trace bits in a scratch tensor on the device, allocated
-here: ``trace_bytes`` says how large (at B=8192, L=160: 168 MB up to
-C=256 columns end to end and up to C=192 in local mode, 336 MB beyond).
-The aligner's ``DP_CHUNK`` bounds B.
+here: ``trace_bytes`` says how large. Narrow, per problem: L * 128 bytes
+up to C = 256 end to end and C = 192 in local mode, twice that beyond
+(20 KB and 40 KB at L = 160). Wide, per problem: L * 128 bytes a column
+tile plus L * 16 bytes for what crosses the tiles' edges (656 KiB at
+L = 1024, C = 1057 end to end, 784 KiB in local mode). ``max_batch`` is
+the rule that bounds one launch's B by that scratch: the aligner cuts its
+problem lists into chunks of that size.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -24,8 +39,15 @@ from . import sw
 
 LAUNCHES = 0
 LAUNCHES_LOCAL = 0
-L_MAX = 160  # longest read the kernels take (the aligner's l_max)
-C_MAX = 257  # widest DP (window + column 0) the main path sends
+SHAPES: collections.Counter = collections.Counter()  # (local, L, C) -> launches
+L_MAX = 1024  # longest read the kernels take (the aligner's l_hard)
+C_MAX = 4097  # widest DP (window + column 0) the kernels take
+L_NARROW = 160  # the narrow body: L <= 160 and C <= 288
+C_NARROW = 288
+BATCH_MAX = 8192  # most problems of one launch, whatever the shape
+# scratch one launch may take: the kernels' trace on the card, the plain
+# versions' trace tensor (B * L * C bytes) on the CPU
+SCRATCH_BUDGET = {"cuda": 1 << 30, "cpu": 1 << 28}
 
 
 def _check(name, t, dtype, shape):
@@ -46,9 +68,9 @@ def _check_problem(reads, pens, rdlens, refs, wlens) -> torch.device:
     _check("rdlens", rdlens, torch.int32, (B,))
     _check("refs", refs, torch.int8, (B, W))
     _check("wlens", wlens, torch.int32, (B,))
-    if L > L_MAX or W + 1 > C_MAX:
+    if L < 1 or L > L_MAX or W + 1 > C_MAX:
         raise ValueError(
-            f"DP shape L={L}, C={W + 1} exceeds the kernel's L<={L_MAX}, "
+            f"DP shape L={L}, C={W + 1} is outside the kernels' 1<=L<={L_MAX}, "
             f"C<={C_MAX}"
         )
     devs = {t.device for t in (reads, pens, rdlens, refs, wlens)}
@@ -60,14 +82,34 @@ def _check_problem(reads, pens, rdlens, refs, wlens) -> torch.device:
     return dev
 
 
+def is_narrow(L: int, C: int) -> bool:
+    """Whether a DP of L rows and C columns runs in the narrow body."""
+    return L <= L_NARROW and C <= C_NARROW
+
+
 def trace_bytes(B: int, L: int, C: int, local: bool) -> int:
-    """Bytes of trace scratch one launch needs: every lane of a problem's
-    warp stores one 32-bit word a row, or two when its strip of
-    ceil(C / 32) columns has more trace bits (4 a cell, 5 in local mode)
-    than a word holds."""
-    strip = -(-C // 32)
-    words = 1 if (5 if local else 4) * strip <= 32 else 2
-    return B * L * 32 * 4 * words
+    """Bytes of scratch one launch needs (csrc/sw_dp.cuh sizes it the same
+    way and refuses less). Narrow body: every lane of a problem's warp
+    stores one 32-bit word a row, or two when its strip of ceil(C / 32)
+    columns has more trace bits (4 a cell, 5 in local mode) than a word
+    holds. Wide body: one word a lane a row for each column tile (256
+    columns end to end, 192 in local mode), then two buffers of one
+    (edge H, scan value) pair a row."""
+    if is_narrow(L, C):
+        strip = -(-C // 32)
+        words = 1 if (5 if local else 4) * strip <= 32 else 2
+        return B * L * 32 * 4 * words
+    tiles = -(-C // (32 * (6 if local else 8)))
+    return B * tiles * L * 32 * 4 + 2 * B * L * 8
+
+
+def max_batch(L: int, C: int, local: bool, device_type: str) -> int:
+    """Most problems of shape (L, C) one launch may hold: as many as keep
+    its scratch within SCRATCH_BUDGET (``trace_bytes`` on the card; the
+    plain version's [B, L, C] trace bytes on the CPU), at least 1 and at
+    most BATCH_MAX."""
+    per = trace_bytes(1, L, C, local) if device_type == "cuda" else L * C
+    return max(1, min(BATCH_MAX, SCRATCH_BUDGET[device_type] // per))
 
 
 def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
@@ -95,6 +137,7 @@ def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
                  nbytes, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
+    SHAPES[(local, L, W + 1)] += 1
     # the caching allocator hands the scratch to later work of this stream
     # only, so freeing it here, before the kernel has run, is safe
     return out, ops, True

@@ -1,5 +1,7 @@
 """The hand-written Hopper DP kernels (end-to-end and local) against their
-plain PyTorch versions, on the card. The kernels have no CPU mode: these
+plain PyTorch versions, on the card, at the narrow shapes (a row in the
+warp's registers) and the wide ones (column tiles: L up to 1024, C past
+288). The kernels have no CPU mode: these
 tests skip without a CUDA device. The file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -168,3 +170,150 @@ def test_kernel_on_side_stream(cuda, mode):
     side.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# (B, L, W) of the wide body: the long reads' launches, the bridge's
+# shape, the widest strip of a wide tile end to end (C=481), a --dpad
+# window on a short read, one column tile with many rows, the widest DP
+# the wrappers take, and shapes one past the narrow body's limits
+_WIDE = [(96, 256, 288), (96, 384, 416), (48, 1024, 1056), (96, 160, 512),
+         (64, 512, 544), (32, 1024, 1088), (64, 256, 480),
+         (32, 1024, 1248), (64, 256, 352),
+         (12, 1024, 2048), (6, 1024, 4096), (80, 200, 100), (80, 161, 40),
+         (80, 160, 288), (33, 700, 191), (33, 700, 192), (33, 513, 255),
+         (33, 513, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("B,L,W", _WIDE)
+def test_wide_kernel_matches_plain(cuda, mode, B, L, W):
+    """Ragged rdlens, N columns inside the windows (codes 0..4), lanes
+    with an empty read or window."""
+    p, gen, plain, wrapper = _MODES[mode]
+    args = [a.to(cuda) for a in gen(L + W, B, L, W)]
+    want = plain(*args, p)
+    key = (mode == "local", L, W + 1)
+    n0 = sw_cuda.SHAPES[key]
+    got = wrapper(*args, p)
+    torch.cuda.synchronize()
+    assert sw_cuda.SHAPES[key] == n0 + 1  # counted by shape, once
+    assert not sw_cuda.is_narrow(L, W + 1)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _tie_problems(seed, B, L, W):
+    """Low-complexity reads in low-complexity windows: many cells tie for
+    the best score, across column tiles too."""
+    rng = np.random.default_rng(seed)
+    rdlens = rng.integers(20, L + 1, B).astype(np.int32)
+    reads = np.full((B, L), 4, np.int8)
+    refs = np.zeros((B, W), np.int8)
+    for b in range(B):
+        unit = rng.integers(0, 4, 1 + b % 3)
+        reads[b, : rdlens[b]] = np.resize(unit, int(rdlens[b]))
+        refs[b] = np.resize(unit, W)
+        if b % 4 == 3:
+            refs[b, W // 3 : W // 3 + 7] = (unit[0] + 1) % 4
+    reads[::8] = 4
+    pens = rng.integers(2, 7, (B, L)).astype(np.int32)
+    wlens = rng.integers(W // 2, W + 1, B).astype(np.int32)
+    return [torch.from_numpy(a) for a in (reads, pens, rdlens, refs, wlens)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("B,L,W", [(64, 160, 600), (48, 300, 1100)])
+def test_wide_kernel_ties(cuda, mode, B, L, W):
+    p, _gen, plain, wrapper = _MODES[mode]
+    args = [a.to(cuda) for a in _tie_problems(L + W, B, L, W)]
+    want = plain(*args, p)
+    got = wrapper(*args, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("kw", [
+    dict(gbar=1), dict(gbar=10),
+    dict(rdg_open=11, rdg_ext=2, rfg_open=6, rfg_ext=4, npen=3, gbar=2)])
+def test_wide_kernel_nondefault_penalties(cuda, mode, kw):
+    p0, gen, plain, wrapper = _MODES[mode]
+    p = sw.SWParams(ma=p0.ma, **kw)
+    args = [a.to(cuda) for a in gen(11, 64, 384, 416)]
+    want = plain(*args, p)
+    got = wrapper(*args, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_long_gapped_paths(cuda):
+    """Reads of 1,000 bases with indels against windows that hold them:
+    op strings of more than 512 ops, which the wide body stores in
+    halves of its window."""
+    rng = np.random.default_rng(2)
+    B, L, W = 24, 1024, 1100
+    reads = np.full((B, L), 4, np.int8)
+    refs = rng.integers(0, 4, (B, W)).astype(np.int8)
+    rdlens = rng.integers(900, L + 1, B).astype(np.int32)
+    for b in range(B):
+        n = int(rdlens[b])
+        rd = rng.integers(0, 4, n).astype(np.int8)
+        reads[b, :n] = rd
+        parts, q = [], 0
+        for cut in range(100, n - 50, 170):  # a 1-5 bp indel each
+            k = 1 + (cut + b) % 5
+            parts.append(rd[q:cut])
+            if (cut + b) % 2:
+                parts.append(rng.integers(0, 4, k).astype(np.int8))
+                q = cut
+            else:
+                q = cut + k
+        parts.append(rd[q:])
+        seg = np.concatenate(parts)[: W - 30]
+        refs[b, 20 : 20 + len(seg)] = seg
+    pens = np.full((B, L), 6, np.int32)
+    wlens = np.full(B, W, np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (reads, pens, rdlens, refs, wlens)]
+    for mode in ("e2e", "local"):
+        p, _gen, plain, wrapper = _MODES[mode]
+        want = plain(*args, p)
+        got = wrapper(*args, p)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int((want[3 if mode == "local" else 2] != 0).sum(1).max()) \
+            > 128  # > 512 ops in a row
+
+
+@pytest.mark.cuda
+def test_launch_refuses_a_short_scratch(cuda):
+    """The library sizes the scratch as sw_cuda.trace_bytes does: one byte
+    less and the launch is refused."""
+    from omp_bowtie2_prime_tpu_torch.ops import _build
+
+    lib = _build.get_lib()
+    for local, (B, L, W) in [(False, (8, 160, 200)), (True, (8, 160, 200)),
+                             (False, (8, 512, 600)), (True, (8, 512, 600))]:
+        args = [a.to(cuda) for a in _problems(1, B, L, W)]
+        nops = -(-(L + W + 1) // 4)
+        out = torch.empty((5, B), dtype=torch.int32, device=cuda)
+        ops = torch.empty((B, nops), dtype=torch.uint8, device=cuda)
+        need = sw_cuda.trace_bytes(B, L, W + 1, local)
+        trace = torch.empty(need, dtype=torch.uint8, device=cuda)
+        fn = (lib.sw_local_backtrace_launch if local
+              else lib.sw_e2e_backtrace_launch)
+        pen = (8, 3, 8, 3, 1, 4) + ((2,) if local else ())
+        for size, ok in ((need, True), (need - 1, False)):
+            err = fn(*(a.data_ptr() for a in args), B, L, W, *pen,
+                     out.data_ptr(), ops.data_ptr(), nops, trace.data_ptr(),
+                     size, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert (err == 0) == ok

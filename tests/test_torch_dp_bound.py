@@ -2,7 +2,8 @@
 
 ``chip_smoke.dp_bound`` is the bound the smoke run prints beside each
 kernel's time. It is pinned here so that it moves only on purpose: the
-cells are the rdlen real rows times the C columns, the operations per
+cells are the rdlen real rows times the window's real columns (and
+column 0), the operations per
 cell are those of the recurrence (30 end to end, 38 local), and the rate
 is the card's int32 rate with Hopper's fused integer instructions counted
 as two operations. Until the kernels used those instructions the rate
@@ -10,6 +11,7 @@ was half of that, and the bounds twice these (0.3686 and 0.4669 ms)."""
 
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -80,6 +82,23 @@ def test_bound_counts_only_real_rows_and_no_scratch(smoke):
     assert sw_cuda.trace_bytes(B, L, W + 1, False) > 10 * nbytes
 
 
+def test_bound_counts_only_a_windows_own_columns(smoke):
+    """Columns past wlen add nothing (the wide body skips their tiles, and
+    no output depends on them); wlen is clamped to the matrix."""
+    full = smoke.dp_bound(_args(64, 512, 576, 500), 3, 30)[0]
+    half = _args(64, 512, 576, 500)
+    half[4][:] = 288
+    assert smoke.dp_bound(half, 3, 30)[0] == pytest.approx(
+        full * 289 / 577, rel=1e-12)
+    over = _args(64, 512, 576, 500)
+    over[4][:] = 9999
+    assert smoke.dp_bound(over, 3, 30)[0] == full
+    # cells beyond int32: B * L * C = 2048 * 1024 * 1057 > 2^31
+    big = smoke.dp_bound(_args(2048, 1024, 1056, 1024), 3, 30)[0]
+    assert big == pytest.approx(
+        1e3 * 2048 * 1024 * 1057 * 30 / 33.5e12, rel=1e-12)
+
+
 @pytest.mark.parametrize("C,local,words", [
     (32, False, 1), (201, False, 1), (256, False, 1), (257, False, 2),
     (32, True, 1), (192, True, 1), (193, True, 2), (201, True, 2),
@@ -141,3 +160,87 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(wrapper):
     with pytest.raises(ValueError):  # longer than L_MAX
         long = _cpu_problems(6, 4, sw_cuda.L_MAX + 1, 50)
         wrapper(*long, p)
+
+
+def test_wrapper_and_header_agree_on_limits_and_scratch():
+    """sw_cuda.trace_bytes must size the scratch as csrc/sw_dp.cuh does
+    (the launch refuses less): the limits of the two bodies, the widest
+    strip of a wide tile in each mode, the words of a wide launch."""
+    with open(os.path.join(_ROOT, "omp_bowtie2_prime_tpu_torch", "csrc",
+                           "sw_dp.cuh")) as f:
+        src = f.read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert const["L_MAX"] == sw_cuda.L_MAX == 1024
+    assert const["C_MAX"] == sw_cuda.C_MAX == 4097
+    assert const["L_NARROW"] == sw_cuda.L_NARROW == 160
+    assert 32 * const["S_MAX"] == sw_cuda.C_NARROW == 288
+    assert (const["S_WIDE_E2E"], const["S_WIDE_LOCAL"]) == (8, 6)
+    assert "(size_t)B * wide_tiles(C, local) * L * 32" in src
+    assert "* 4 + (size_t)2 * B * L * 8" in src
+    for local, smax in ((False, 8), (True, 6)):
+        for L, C in ((1024, 1057), (161, 33), (160, 289), (700, 32 * smax),
+                     (700, 32 * smax + 1)):
+            tiles = -(-C // (32 * smax))
+            assert sw_cuda.trace_bytes(3, L, C, local) == \
+                3 * tiles * L * 32 * 4 + 2 * 3 * L * 8
+    # a wide tile keeps one trace word a lane: 4 (5) bits a cell fit 32
+    assert 4 * 8 <= 32 and 5 * 6 <= 32 < 5 * 7
+
+
+def test_smoke_cases_cover_the_new_shapes(smoke):
+    """Phase 3 of the smoke run holds the shapes this slice added, among
+    them those the long path frames (500 bp reads: L=512, C=545; the
+    bridge: L=1024, C=1089, with N runs inside; C=481, the widest strip
+    of a wide tile end to end), and the long path's read lengths reach
+    1,000 bp. What the paths launch beyond these, phase 8 holds."""
+    for local in (False, True):
+        cases = {c[0]: c[1:] for c in smoke.kernel_cases(local)}
+        held = {(c[1], c[2] + 1) for c in cases.values() if c[4]}
+        assert {(160, 201), (160, 225), (160, 257), (256, 289), (256, 481),
+                (384, 417), (512, 545), (1024, 1057), (160, 513),
+                (1024, 1089), (160, 601), (300, 1101)} <= held
+        assert cases["L1024"][0] == 256
+        assert cases["L1024 B2048"][4] is False  # timed only
+        assert cases["bridge ragged"][3] == dict(
+            ragged=True, degenerate=True, n_inside=True)
+        assert cases["L512 N inside"][3]["n_inside"]
+        assert [c for c in cases.values() if c[3] is None]  # the tie cases
+        assert ("ties+allN" in cases) == local
+        # each body has the case its entry of the kernels line reports
+        assert sw_cuda.is_narrow(*cases["narrow"][1:3])
+        assert not sw_cuda.is_narrow(cases["L1024"][1], cases["L1024"][2] + 1)
+    # the widest strip of a wide tile: 2 tiles of 8 * 32 columns at C=481
+    assert -(-481 // (32 * -(-481 // 256))) == 8
+    assert smoke.LONG_LENS == (100, 150, 250, 500, 1000)
+    assert set(smoke.N_READS) == {"e2e", "local", "long"}
+
+
+def test_kernel_entries_by_body(smoke):
+    """The kernels line has one entry for each body of a kernel, each with
+    its own hot shape's numbers and the cases of its body."""
+    rows = [dict(label=c[0], B=c[1], L=c[2], C=c[3] + 1, ms=float(i + 1),
+                 plain_ms=9.0 if c[5] else None, bound_ms=0.5,
+                 bound_by="operations", max_abs_err=0 if c[5] else None)
+            for i, c in enumerate(smoke.kernel_cases(True))]
+    narrow = smoke.kernel_entry("K2", rows, True)
+    wide = smoke.kernel_entry("K2", rows, False)
+    assert narrow["name"] == "sw_local_backtrace"
+    assert wide["name"] == "sw_local_backtrace_wide"
+    assert narrow["shape"] == dict(B=8192, L=160, C=201)
+    assert wide["shape"] == dict(B=256, L=1024, C=1057)
+    assert narrow["ms"] == 1.0 and wide["plain_ms"] == 9.0
+    assert len(narrow["shapes"]) + len(wide["shapes"]) == len(rows)
+    need = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert need <= set(narrow) and need <= set(wide)
+
+
+def test_launch_shapes_tell_the_bodies_apart():
+    assert sw_cuda.is_narrow(160, 288) and sw_cuda.is_narrow(1, 1)
+    assert not sw_cuda.is_narrow(161, 33)
+    assert not sw_cuda.is_narrow(160, 289)
+    # a CPU call launches nothing and records no shape
+    before = dict(sw_cuda.SHAPES)
+    sw_cuda.sw_e2e_backtrace(*_cpu_problems(2, 3, 20, 30), sw.SWParams())
+    assert dict(sw_cuda.SHAPES) == before

@@ -1,7 +1,9 @@
 """The port's index against the JAX package's: the same FMIndex arrays
 from the same FASTA, the JAX package's .npz loads in the port, and the
-device repack (GpuIndex) equals DeviceIndex field for field. Exact
-equality throughout (all integer arrays)."""
+device repack (GpuIndex) equals DeviceIndex field for field; the same for
+a reference with N runs inside its sequences (the frag_* tables), whose
+ReferenceMap answers as the JAX package's. Exact equality throughout (all
+integer arrays)."""
 
 import dataclasses
 
@@ -87,3 +89,46 @@ def test_gpu_index_matches_device_index(fasta, ftab_k):
     assert g.zoff == int(np.asarray(d.zoff))
     assert g.nrows == int(np.asarray(d.nrows))
     assert (g.ftab_k, g.srate) == (d.ftab_k, d.srate)
+
+
+def test_index_with_n_gaps_matches_jax(tmp_path):
+    """Both packages build the same index arrays, the frag_* tables included,
+    for sequences with N runs at their start, inside and at their end;
+    the JAX package's .npz of it loads in the port, and the port's
+    ReferenceMap decodes windows and maps offsets as the JAX package's."""
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 4, 9000).astype(np.int8)
+    b = rng.integers(0, 4, 5000).astype(np.int8)
+    a[:30] = 4
+    a[4000:4005] = 4
+    a[7000:7400] = 4
+    b[2500] = 4
+    b[-20:] = 4
+    fa = str(tmp_path / "n.fa")
+    with open(fa, "w") as f:
+        for name, codes in (("a", a), ("b desc", b)):
+            f.write(f">{name}\n{dna.decode(codes)}\n")
+    jfm, tfm = jax_build(fa), build_index(fa)
+    _assert_same_index(tfm, jfm)
+    assert len(tfm.refmap.frag_refid) == 5
+    path = str(tmp_path / "n.npz")
+    jfm.save(path)
+    loaded = FMIndex.load(path)
+    assert isinstance(loaded.refmap, ReferenceMap)
+    _assert_same_index(loaded, jfm)
+    text = dna.unpack_2bit(jfm.ref_words, jfm.n)
+    for rid, start, count in [(0, 0, 100), (0, 3990, 30), (0, 6900, 600),
+                              (1, 2490, 20), (1, 4900, 200), (0, -10, 50)]:
+        np.testing.assert_array_equal(
+            loaded.refmap.ref_window(text, rid, start, count),
+            jfm.refmap.ref_window(text, rid, start, count))
+    for rid, off in [(0, 0), (0, 30), (0, 3999), (0, 4002), (0, 4005),
+                     (0, 7399), (0, 7400), (1, 2500), (1, 2501), (1, 4979),
+                     (1, 4980)]:
+        assert loaded.refmap.ref_to_joined(rid, off) == \
+            jfm.refmap.ref_to_joined(rid, off)
+        assert loaded.refmap.ref_fragment_bounds(rid, off) == \
+            jfm.refmap.ref_fragment_bounds(rid, off)
+    TorchAligner(loaded, device="cpu")  # such a reference is taken

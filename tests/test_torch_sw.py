@@ -128,10 +128,10 @@ def test_wrapper_rejects_bad_shapes():
         sw_cuda.sw_e2e_backtrace(args[0].to(torch.int32), *args[1:],
                                  tsw.SWParams())
     big = [torch.from_numpy(np.ascontiguousarray(a))
-           for a in _case(3, B=4, L=192)]
-    with pytest.raises(ValueError):
+           for a in _case(3, B=4, L=sw_cuda.L_MAX + 32)]
+    with pytest.raises(ValueError, match="L<=1024"):
         sw_cuda.sw_e2e_backtrace(*big, tsw.SWParams())
     wide = [torch.from_numpy(np.ascontiguousarray(a))
-            for a in _case(3, B=4, W=257)]
-    with pytest.raises(ValueError):
+            for a in _case(3, B=4, W=sw_cuda.C_MAX)]
+    with pytest.raises(ValueError, match="C<=4097"):
         sw_cuda.sw_e2e_backtrace(*wide, tsw.SWParams())

@@ -172,6 +172,6 @@ def test_local_wrapper_rejects_bad_shapes():
         sw_cuda.sw_local_backtrace(args[0].to(torch.int32), *args[1:],
                                    tsw.SWParams(ma=2))
     wide = [torch.from_numpy(np.ascontiguousarray(a))
-            for a in _case(3, B=4, W=257)]
-    with pytest.raises(ValueError):
+            for a in _case(3, B=4, W=sw_cuda.C_MAX)]
+    with pytest.raises(ValueError, match="C<=4097"):
         sw_cuda.sw_local_backtrace(*wide, tsw.SWParams(ma=2))
