@@ -16,7 +16,8 @@ Phases, one line each, stamped with the seconds since the start:
   3. each kernel (K1 end-to-end DP, K2 local DP) against its plain PyTorch
      version on the card, at the main paths' shapes (the narrow body: a
      row in the warp's registers; the wide body: reads of up to 1,024
-     rows and windows past 288 columns swept in column tiles), on
+     rows and windows past 288 columns cut into column tiles, a warp of
+     the problem's block each), on
      degenerate lanes, on windows with N columns inside and on ties
      across tiles (exact equality: all outputs are integers), with both
      times and the kernel's bound; the cases are ``kernel_cases``;
@@ -109,7 +110,6 @@ KERNELS = {
         ops_per_cell=38,
     ),
 }
-
 
 _ASCII = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -225,12 +225,16 @@ def kernel_cases(local):
     250, 500 and 1,000 bp reads (L=256, C=289; L=512, C=545; L=1024,
     C=1057) and for its bridge and escalation (L=1024, C=1089: a 1,000
     bp read, its margins and the N runs a window absorbs), the latter on
-    ragged reads of 1 to 1,024 bases with N runs inside; L=384; C=481
-    (the widest strip of a wide tile end to end); a --dpad window on
-    short reads (C=513); low-complexity problems whose best cells tie
-    across column tiles (C > 512). What the paths launch beyond these is
-    held by phase 8. A case with compare
-    False is timed only (its shape is held at a smaller B)."""
+    ragged reads of 1 to 1,024 bases with N runs inside; the longest
+    reads' shape also at the launch sizes around the aligner's (B = 64
+    and 512 beside 256: the wide body's time hangs on how many warps a
+    launch brings); L=384; C=481 (the widest strip of a wide tile end to
+    end); a --dpad window on short reads (C=513); a mate-rescue window on
+    short reads (C=641, the default maximum fragment plus margins);
+    low-complexity problems whose best cells tie across column tiles
+    (C > 512). What the paths launch beyond these is held by phase 8. A
+    case with compare False is timed only (its shape is held at a smaller
+    B)."""
     fl = dict(flanks=local)
     long_fl = dict(lens=(900, 1000, 1024), **fl)
     cases = [("narrow", 8192, 160, 200, fl, True),
@@ -245,8 +249,11 @@ def kernel_cases(local):
              ("L512 N inside", 512, 512, 544,
               dict(lens=(400, 500), n_inside=True), True),
              ("L1024", 256, 1024, 1056, long_fl, True),
+             ("L1024 B64", 64, 1024, 1056, long_fl, True),
+             ("L1024 B512", 512, 1024, 1056, long_fl, True),
              ("L1024 B2048", 2048, 1024, 1056, long_fl, False),
              ("dpad", 1024, 160, 512, fl, True),
+             ("rescue", 2048, 160, 640, fl, True),
              ("bridge ragged", 256, 1024, 1088,
               dict(ragged=True, degenerate=True, n_inside=True), True),
              ("ties C601", 256, 160, 600, None, True),
@@ -254,6 +261,29 @@ def kernel_cases(local):
     if local:
         cases.insert(5, ("ties+allN", 1024, 160, 200, None, True))
     return cases
+
+
+def where_they_differ(args, got, want, got2, want2):
+    """What a failed comparison found, for the error's text: per output
+    the problems that differ and the first of them with its lengths and
+    both values, and whether a second run of the kernel and of the plain
+    version (same inputs) repeats the first, which tells a fault of the
+    code from one that comes and goes."""
+    parts = []
+    for n, (g, w) in enumerate(zip(got, want)):
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs().reshape(len(g), -1)
+        rows = d.amax(1).nonzero()[:, 0]
+        if len(rows):
+            b = int(rows[0])
+            parts.append(
+                f"output {n}: {len(rows)} of {len(g)} problems, first b={b} "
+                f"(rdlen {int(args[2][b])}, wlen {int(args[4][b])}) kernel "
+                f"{g[b].flatten()[:8].tolist()} plain "
+                f"{w[b].flatten()[:8].tolist()}")
+    same = [all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in ((got, got2), (want, want2))]
+    return "; ".join(parts) + (f"; a second kernel run equals the first: "
+                               f"{same[0]}, a second plain run: {same[1]}")
 
 
 def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3):
@@ -280,7 +310,9 @@ def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3):
                   for g, w in zip(got, want))
         if err != 0:
             raise AssertionError(
-                f"{tag} kernel != plain at {label}: max err {err}")
+                f"{tag} kernel != plain at {label}: max err {err}; "
+                + where_they_differ(args, got, want, wrapper(*args, p),
+                                    plain(*args, p)))
         del got, want
     ms = time_ms(lambda: wrapper(*args, p), 20 if L <= 160 else 5)
     bound_ms, bound_by = dp_bound(args, k["nout"] - 1, k["ops_per_cell"])
@@ -788,14 +820,30 @@ def main():
         f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     with open(lib + ".log") as f:
         report = f.read()
-    # ptxas' report: one instance per body, strip width S and mode
-    for body, strip, local, spill, regs in re.findall(
+    # ptxas' report: one instance per body, strip width S and mode. A
+    # narrow block is two warps and no shared memory; a wide one has a
+    # warp a column tile and keeps the read and the tiles' edge rings in
+    # shared memory. A wide instance serves blocks of several sizes, so
+    # the warps an SM holds are given for the one the longest reads' shape
+    # (L=1024, C=1057) runs in, at that shape's block
+    for body, strip, local, spill, regs, rest in re.findall(
             r"sw_dp_(wide_)?kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill "
-            r"stores.*?Used (\d+) registers", report, re.S):
-        log(f"[2]   {'K2' if local == '1' else 'K1'} "
-            f"{'wide' if body else 'narrow'} S={strip}: {regs} "
-            f"registers, {spill} bytes spilled, no shared memory, "
-            f"{min(64, 65536 // (32 * -(-int(regs) // 8) * 8))} warps an SM")
+            r"stores.*?Used (\d+) registers([^\n]*)", report, re.S):
+        smem = re.search(r"(\d+) bytes smem", rest)
+        smem = int(smem.group(1)) if smem else 0
+        loc = local == "1"
+        line = (f"[2]   {'K2' if loc else 'K1'} "
+                f"{'wide' if body else 'narrow'} S={strip}: {regs} "
+                f"registers, {spill} bytes spilled, {smem} bytes of shared "
+                f"memory a block")
+        wpb = sw_cuda.wide_warps(1057, loc) if body else 2
+        s_long = -(-1057 // (32 * sw_cuda.wide_tiles(1057, loc)))
+        if not body or int(strip) == s_long:
+            blocks = min(32, 65536 // (32 * wpb * -(-int(regs) // 8) * 8),
+                         233472 // (smem + 1024))
+            line += (f", {blocks * wpb} warps an SM in blocks of {wpb}"
+                     + (" (L=1024, C=1057)" if body else ""))
+        log(line)
     if "--sass" in sys.argv[1:]:
         sass_row(lib, -(-201 // 32))  # the narrow shape's strip width
     if native.get_lib() is None:

@@ -46,9 +46,10 @@
 //
 // Shapes past those (reads of up to L_MAX = 1024 rows, windows of up to
 // C_MAX = 4097 columns: long reads, --dpad windows, N-bridge windows) go to
-// a second body, sw_dp_wide_kernel, further down: the same row, swept over
-// column tiles. The narrow instances above are what the main path of
-// short reads runs and are kept apart from it.
+// a second body, sw_dp_wide_kernel, further down: the same row, cut into
+// column tiles that the warps of a block run as a wavefront. The narrow
+// instances above are what the main path of short reads runs and are kept
+// apart from it.
 //
 // The results are bitwise those of the JAX functions: every value that
 // reaches an output (NEG floors, the 0 floor of local mode, the
@@ -358,39 +359,73 @@ sw_dp_kernel(const int8_t* __restrict__ reads, const int32_t* __restrict__ pens,
 }
 
 // ---------------------------------------------------------------------
-// The wide body: any L <= L_MAX and any C <= C_MAX.
+// The wide body: any L <= L_MAX and any C <= C_MAX. It stands for the same
+// two Pallas kernels as the narrow body (`_sw_e2e_tb_pallas_body` and
+// `_sw_local_tb_pallas_body`, omp_bowtie2_prime_tpu/ops/sw_pallas.py, with
+// their trace walks) at the shapes those left to XLA's any-shape DP.
 //
-// One warp still owns a problem, but the row no longer fits its registers,
-// so the warp sweeps the DP in column tiles of 32 * S columns, left to
-// right, every tile over all rdlen rows. S is at most 8 end to end and 6
-// in local mode, which keeps a lane's trace bits of a row in one word; the
-// dispatch picks the smallest S that covers C with the fewest tiles. Tiles
-// past the window's last live column (min(wlen, W)) are never computed:
-// their cells are NEG, no best cell lies there and no walk enters them.
+// The row no longer fits one warp's registers, so the DP is cut into
+// column tiles of 32 * S columns. S is at most 8 end to end and 6 in local
+// mode, which keeps a lane's trace bits of a row in one word; the dispatch
+// picks the smallest S that covers C with the fewest tiles.
 //
-// What crosses a tile's right edge, per row, goes through a scratch of
-// [2, B, L] int2 in device memory (two buffers, written and read in
-// turn): the floored H of the tile's last column, which is the next
-// tile's left neighbour for the read-gap-open bit of that row and its
-// diagonal for the row below, and the running prefix max of the
-// un-floored row in window coordinates, which seeds the next tile's
-// read-gap scan. Lane 31 stores the pair of a row; the next tile
-// prefetches them 32 rows at a time like the read's codes and broadcasts
-// them by shuffle. Only the first tile has a column 0 with its special
-// values.
+// What bounds it on this card: latency, at the launch sizes the aligner
+// makes (tens to hundreds of problems of up to 1,024 rows). A row of a tile
+// is a chain of dependent instructions, the warp scan of the read-gap term
+// above all, that one warp alone cannot hide, and a card of 528 schedulers
+// has nothing else to run when a launch brings one warp a problem. Only
+// with thousands of problems does the int32 pipe bound it, as it bounds the
+// narrow body. So the design spends warps, not instructions:
 //
-// The best cell is found per tile with the narrow body's key, whose low
-// nine bits hold the column within the tile, and merged across tiles by
-// comparing scores and rows: a later tile holds larger columns, so it wins
-// a tie only with a smaller row (local mode) and never end to end.
+//  - A block a problem, a warp a column tile, and all tiles of a problem
+//    in flight at once as a wavefront: warp t computes rows [CHUNK * k,
+//    CHUNK * (k + 1)) of tile t once warp t - 1 has done them in tile
+//    t - 1. A problem takes rows + CHUNK * (tiles - 1) row steps, not
+//    rows * tiles, and a launch brings tiles times as many warps.
+//  - What crosses a tile's right edge, per row, is one pair: the floored H
+//    of the tile's last column (the next tile's left neighbour for the
+//    read-gap-open bit of that row and its diagonal for the row below) and
+//    the running prefix max of the un-floored row in window coordinates,
+//    which seeds the next tile's read-gap scan. Lane 31 of the producer
+//    writes the pair into a ring in shared memory (RING chunks of CHUNK
+//    rows for each pair of neighbouring warps) and every lane of the
+//    consumer reads it there (one broadcast load; only lane 0 uses it).
+//    Nothing of it touches device memory.
+//  - The hand-over is by chunk: a warp publishes the number of chunks it
+//    has finished (prog[], shared memory, after a fence) and polls its
+//    neighbours' numbers: the left one's before it reads a chunk, the right
+//    one's before it overwrites a ring slot. All warps of a block are
+//    resident, so a warp may wait on another.
+//  - The read is the same for every tile, so the block keeps it in shared
+//    memory as one record a row (code, match score, mismatch score, gap
+//    barrier term), written once by all threads; a row costs one broadcast
+//    load for it where the narrow body pays three shuffles.
+//  - Tiles past the window's last live column (min(wlen, W)) are never
+//    computed: their cells are NEG, no best cell lies there and no walk
+//    enters them. Their warps go straight to the block's barrier.
+//  - A block has at most WIDE_WARPS warps. A DP of more tiles runs in
+//    passes: warp w takes tiles w, w + WIDE_WARPS, ... The one boundary
+//    whose consumer runs a pass later (last warp to warp 0) goes through a
+//    scratch of [B, L] int2 in device memory, which warp 0 copies into its
+//    own ring slot a chunk at a time; it exists only for such shapes
+//    (C > 2048 end to end, C > 1536 local).
 //
-// The trace is [B, NT, L, 32] words; the walk decodes a cell's tile first.
-// The op string can be 3,073 ops long, so the warp holds a window of 512
-// ops (one word a lane) and, whenever the walk is past the window's
-// middle, stores the lower half and shifts the upper half down; a round of
-// the walk adds at most 33 ops.
+// Each warp finds the best cell of its tiles with the narrow body's key,
+// whose low nine bits hold the column within the tile. After the block's
+// barrier warp 0 merges the warps' cells by score, then (local mode) the
+// smaller row, then the smaller column, which is the reference's order.
+//
+// The trace is [B, NT, L, 32] words in device memory; warp 0 walks it as
+// the narrow body does and decodes a cell's tile first. The op string can
+// be 3,073 ops long, so the warp holds a window of 512 ops (one word a
+// lane) and, whenever the walk is past the window's middle, stores the
+// lower half and shifts the upper half down; a round of the walk adds at
+// most 33 ops.
 constexpr int S_WIDE_E2E = 8;
 constexpr int S_WIDE_LOCAL = 6;
+constexpr int WIDE_WARPS = 8;  // most column tiles of a problem in flight
+constexpr int CHUNK = 8;       // rows handed from tile to tile at a time
+constexpr int RING = 16;       // chunks a ring holds (a power of two)
 
 __host__ __device__ constexpr int wide_smax(bool local) {
   return local ? S_WIDE_LOCAL : S_WIDE_E2E;
@@ -399,12 +434,23 @@ __host__ __device__ constexpr int wide_smax(bool local) {
 __host__ __device__ constexpr int wide_tiles(int C, bool local) {
   return (C + 32 * wide_smax(local) - 1) / (32 * wide_smax(local));
 }
-// bytes of scratch one wide launch needs: the trace, then the edge pairs
+// warps of a block, and the passes in which they sweep the tiles
+__host__ __device__ constexpr int wide_warps(int C, bool local) {
+  return wide_tiles(C, local) < WIDE_WARPS ? wide_tiles(C, local) : WIDE_WARPS;
+}
+__host__ __device__ constexpr int wide_passes(int C, bool local) {
+  return (wide_tiles(C, local) + WIDE_WARPS - 1) / WIDE_WARPS;
+}
+// bytes of scratch one wide launch needs: the trace, then, for a DP of
+// more than one pass, the edge pairs of the pass boundary
 constexpr size_t wide_trace_words(int B, int L, int C, bool local) {
   return (size_t)B * wide_tiles(C, local) * L * 32;
 }
+constexpr size_t wide_edge_bytes(int B, int L, int C, bool local) {
+  return wide_passes(C, local) > 1 ? (size_t)B * L * 8 : 0;
+}
 constexpr size_t wide_scratch_bytes(int B, int L, int C, bool local) {
-  return wide_trace_words(B, L, C, local) * 4 + (size_t)2 * B * L * 8;
+  return wide_trace_words(B, L, C, local) * 4 + wide_edge_bytes(B, L, C, local);
 }
 
 // stores word w of a problem's op string (rows are not word-aligned)
@@ -415,8 +461,23 @@ __device__ __forceinline__ void op_store(uint8_t* orow, int w, uint32_t v,
     if (4 * w + q < nops_bytes) orow[4 * w + q] = (uint8_t)(v >> (8 * q));
 }
 
+// the whole warp waits until another warp of the block has published at
+// least `need` chunks; what that warp wrote before is then visible. A
+// wait is a few chunks of rows long (microseconds); one of SPIN_MAX polls
+// (a second or more) means the chunk numbering is broken, and the kernel
+// traps, so the launch's stream reports an error where it would hang.
+constexpr int SPIN_MAX = 1 << 25;
+__device__ __forceinline__ void wait_chunks(const volatile int* done, int need) {
+  for (int spins = 0; *done < need; ++spins) {
+    if (spins == SPIN_MAX) __trap();
+    __nanosleep(32);
+  }
+  __threadfence_block();
+  __syncwarp();
+}
+
 template <int S, bool LOCAL>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
 sw_dp_wide_kernel(const int8_t* __restrict__ reads,
                   const int32_t* __restrict__ pens,
                   const int32_t* __restrict__ rdlens,
@@ -427,12 +488,22 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
                   int nops_bytes, uint32_t* trace, int2* edge) {
   using T = Trace<S, LOCAL>;
   static_assert(T::NW == 1, "a wide tile keeps one trace word a lane");
+  static_assert((RING & (RING - 1)) == 0 && CHUNK <= 32,
+                "RING is a power of two; a warp stages a chunk at once");
   constexpr int PB = T::PB;
   constexpr int TC = 32 * S;  // columns of a tile
   constexpr int FLOOR = LOCAL ? 0 : NEG;
+  // the read, a record a row: code, match score, mismatch score, gap
+  // barrier term (0 where gaps may open, NEG within gbar of an end)
+  __shared__ int4 row_sm[L_MAX];
+  // ring[w]: what warp w takes over its tile's left edge
+  __shared__ int2 ring[WIDE_WARPS][RING][CHUNK];
+  __shared__ volatile int prog[WIDE_WARPS];  // chunks warp w has finished
+  __shared__ int wbest[WIDE_WARPS][3];       // warp w's best cell
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;  // warp-uniform; the kernel has no block-wide barrier
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int b = blockIdx.x;  // a block a problem: the grid is B
 
   const int C = W + 1;
   const int rdlen = rdlens[b];
@@ -441,21 +512,41 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
   const int32_t* pn = pens + (size_t)b * L;
   const int8_t* rf = refs + (size_t)b * W;
   const int nnp = -p.npen;
-  const int ma = LOCAL ? p.ma : 0;
   const int hl0 = NEG + p.npen;  // see the narrow body
-  const int rows = min(rdlen, L);
+  const int rows = max(min(rdlen, L), 0);
+  const int nch = (rows + CHUNK - 1) / CHUNK;
   // tiles that hold a live column (columns 0 .. min(wlen, W))
   const int ntiles = min(NT, min(max(wlen, 0), W) / TC + 1);
-  int best = LOCAL ? 0 : NEG, brow = 0, bcol = 0;
 
-  for (int tile = 0; tile < ntiles; ++tile) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int c = rd[r];
+    const int i = r + 1;
+    row_sm[r] = make_int4(c, c < 4 ? (LOCAL ? p.ma : 0) : nnp,
+                          c < 4 ? -pn[r] : nnp,
+                          (i > p.gbar && i <= rdlen - p.gbar) ? 0 : NEG);
+  }
+  if (lane == 0) prog[w] = 0;
+  __syncthreads();
+
+  // no cell yet: any end-to-end score beats INT_MIN, no local one beats 0
+  int best = LOCAL ? 0 : INT_MIN, brow = 0, bcol = 0;
+  int2* eb = edge + (size_t)b * L;  // the pass boundary's pairs
+
+  for (int tile = w, pass = 0; tile < ntiles; tile += nw, ++pass) {
     const int jt = tile * TC;
     const int j0 = jt + lane * S;
     const int j0ext = j0 * p.rdg_ext;
     uint32_t* tr = trace + ((size_t)b * NT + tile) * L * 32 + lane;
-    const int2* ein = edge + ((size_t)((tile + 1) & 1) * B + b) * L;
-    int2* eout = edge + ((size_t)(tile & 1) * B + b) * L;
+    // the left edge comes from warp w - 1 through this warp's ring or,
+    // for warp 0 after the first pass, from the last warp through the
+    // device scratch; the right edge goes to warp w + 1's ring or, from
+    // the last warp, to that scratch
+    const bool has_in = tile > 0;
+    const bool in_dev = has_in && w == 0;
     const bool hand_on = tile + 1 < ntiles;
+    const bool to_ring = hand_on && w + 1 < nw;
+    const bool to_dev = hand_on && w + 1 == nw;
+    const int src = w > 0 ? w - 1 : nw - 1;
 
     int refc[S], keep[S], cap[S], hp[S], ft[S];
 #pragma unroll
@@ -472,35 +563,36 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
     // H[i-1][jt-1] for lane 0's diagonal: row 0 of a live column is 0
     int eprev = 0;
 
-    // this lane's row of the next 32: read code, match and mismatch
-    // score, and what the tile before handed over its right edge
-    auto own_row = [&](int r, int& c, int& m, int& x, int& eh, int& ci) {
-      c = 4; m = nnp; x = nnp; eh = LOW; ci = LOW;
-      if (r < rows) {
-        c = rd[r];
-        if (c < 4) { m = ma; x = -pn[r]; }
-        if (tile > 0) {
-          const int2 v = __ldcg(ein + r);
-          eh = v.x; ci = v.y;
+    for (int k = 0; k < nch; ++k) {
+      const int gk = pass * nch + k;  // this warp's chunks before this one
+      const int slot = gk & (RING - 1);
+      if (has_in) {
+        wait_chunks(&prog[src], (in_dev ? gk - nch : gk) + 1);
+        if (in_dev) {
+          const int r = k * CHUNK + lane;
+          if (lane < CHUNK && r < rows) ring[0][slot][lane] = __ldcg(eb + r);
+          __syncwarp();
         }
       }
-    };
-    int nc, nm, nx, neh, nci;
-    own_row(lane, nc, nm, nx, neh, nci);
-
-    for (int base = 0; base < rows; base += 32) {
-      const int my_c = nc, my_m = nm, my_x = nx, my_eh = neh, my_ci = nci;
-      own_row(base + 32 + lane, nc, nm, nx, neh, nci);
-      const int nr = min(32, rows - base);
+      // the slot this chunk's pairs go to was last used RING chunks ago
+      if (to_ring && gk >= RING) wait_chunks(&prog[w + 1], gk - RING + 1);
+      const int2* rin = ring[w][slot];
+      int2* rout = ring[(w + 1) & (WIDE_WARPS - 1)][slot];
+      const int r0 = k * CHUNK;
+      const int nr = min(CHUNK, rows - r0);
+      // the next row's record and pair are loaded a row ahead
+      int4 rr = row_sm[r0];
+      int2 ev = has_in ? rin[0] : make_int2(LOW, LOW);
       for (int q = 0; q < nr; ++q) {
-        const int i = base + q + 1;
-        const int rc = __shfl_sync(FULL, my_c, q);
-        const int sm = __shfl_sync(FULL, my_m, q);
-        const int sx = __shfl_sync(FULL, my_x, q);
+        const int i = r0 + q + 1;
+        const int rc = rr.x, sm = rr.y, sx = rr.z, gm = rr.w;
         // H[i][jt-1], floored, and the scan's value up to column jt-1
-        const int eh = __shfl_sync(FULL, my_eh, q);
-        const int cin = __shfl_sync(FULL, my_ci, q);
-        const int gm = (i > p.gbar && i <= rdlen - p.gbar) ? 0 : NEG;
+        // (LOW in the first tile)
+        const int eh = ev.x, cin = ev.y;
+        if (q + 1 < nr) {
+          rr = row_sm[r0 + q + 1];
+          if (has_in) ev = rin[q + 1];
+        }
         const int cu = gm - p.rfg_open;
         const int c3 = gm - p.rdg_open;
         const int hl = lane == 0 ? (tile == 0 ? hl0 : eprev) : hs;
@@ -523,7 +615,7 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
           pre[t] = run;
         }
         // the scan in window coordinates, seeded in lane 0 with what the
-        // tiles before found (LOW in the first tile)
+        // tiles before found
         int x = run + j0ext;
         if (lane == 0) x = max(x, cin);
 #pragma unroll
@@ -555,10 +647,13 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
           hp[t] = h[t];
         }
         __stcg(tr + (size_t)(i - 1) * 32, wb | (wa << T::OFF_A));
-        if (hand_on && lane == 31) __stcg(eout + (i - 1), make_int2(h[S - 1], x));
+        if (lane == 31) {
+          if (to_ring) rout[q] = make_int2(h[S - 1], x);
+          if (to_dev) __stcg(eb + (i - 1), make_int2(h[S - 1], x));
+        }
         if (LOCAL) {
-          // smallest row, then smallest column: within a tile rows come
-          // in order, and a later tile has the larger columns
+          // smallest row, then smallest column: a warp's rows come in
+          // order within a tile, and its later tiles hold larger columns
           const int rkey = __reduce_max_sync(FULL, key);
           const int sc = rkey >> 9;
           if (sc > best || (sc == best && i < brow)) {
@@ -568,6 +663,13 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
           }
         }
       }
+      // publish the chunk: lane 31 wrote the pairs; every lane has read
+      // this chunk's slot of the warp's own ring
+      __syncwarp();
+      if (lane == 31) {
+        __threadfence_block();
+        prog[w] = gk + 1;
+      }
     }
     if (!LOCAL && rdlen >= 1 && rdlen <= L) {
       // the last row's real columns of this tile, first column on ties
@@ -576,12 +678,34 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
       for (int t = 0; t < S; ++t)
         if (j0 + t < C) key = max(key, hp[t] * 512 + (511 - lane * S - t));
       key = __reduce_max_sync(FULL, key);
-      if (tile == 0 || (key >> 9) > best) {
+      if ((key >> 9) > best) {
         best = key >> 9;
         bcol = jt + 511 - (key & 511);
       }
     }
-    __syncwarp();  // the tile's stores are visible to all lanes of the warp
+  }
+  if (lane == 0) {
+    wbest[w][0] = best;
+    wbest[w][1] = brow;
+    wbest[w][2] = bcol;
+  }
+  // every warp comes here, those of dead tiles at once; after it the
+  // block's trace stores and best cells are visible to warp 0
+  __syncthreads();
+  if (w != 0) return;
+
+  // the warps' cells merged: score, then the smaller row (local mode),
+  // then the smaller column
+  best = LOCAL ? 0 : NEG; brow = 0; bcol = 0;
+  for (int v = 0; v < nw; ++v) {
+    const int sc = wbest[v][0], br = wbest[v][1], bc = wbest[v][2];
+    if (!LOCAL && sc == INT_MIN) continue;  // no tile, or no last row
+    if (sc > best ||
+        (sc == best && (br < brow || (br == brow && bc < bcol)))) {
+      best = sc;
+      brow = br;
+      bcol = bc;
+    }
   }
 
   // the walk, as the narrow body's, over the tiled trace
@@ -607,10 +731,10 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
       const int jj = min(max(jr, 0), C - 1);
       const int tl = jj / TC, jl = jj - tl * TC;
       const int ln = jl / S, t = jl - ln * S;
-      const uint32_t w =
+      const uint32_t tw =
           __ldcg(trace + (((size_t)b * NT + tl) * L + li) * 32 + ln);
-      bits = ((w >> (PB * (S - 1 - t))) ^ 0x7u) & ((1u << PB) - 1u);
-      a2 = ~(w >> (T::OFF_A + S - 1 - t)) & 1u;
+      bits = ((tw >> (PB * (S - 1 - t))) ^ 0x7u) & ((1u << PB) - 1u);
+      a2 = ~(tw >> (T::OFF_A + S - 1 - t)) & 1u;
     }
     const bool stop = LOCAL && (bits & 8u);
     const bool cont =
@@ -643,8 +767,8 @@ sw_dp_wide_kernel(const int8_t* __restrict__ reads,
     }
   }
   op_store(orow, wbase / 16 + lane, opsw, nops_bytes);
-  for (int w = wbase / 16 + 32 + lane; 4 * w < nops_bytes; w += 32)
-    op_store(orow, w, 0u, nops_bytes);
+  for (int w2 = wbase / 16 + 32 + lane; 4 * w2 < nops_bytes; w2 += 32)
+    op_store(orow, w2, 0u, nops_bytes);
   if (lane != 0) return;
   if (LOCAL) {
     out[b] = best;
@@ -667,8 +791,8 @@ cudaError_t launch_wide(const void* reads, const void* pens,
                         size_t trace_size, cudaStream_t stream) {
   if (trace_size < wide_scratch_bytes(B, L, W + 1, LOCAL))
     return cudaErrorInvalidValue;
-  const int grid = (B + WARPS - 1) / WARPS;
-  sw_dp_wide_kernel<S, LOCAL><<<grid, WARPS * 32, 0, stream>>>(
+  // a block a problem, a warp a column tile, at most WIDE_WARPS of them
+  sw_dp_wide_kernel<S, LOCAL><<<B, 32 * wide_warps(W + 1, LOCAL), 0, stream>>>(
       (const int8_t*)reads, (const int32_t*)pens, (const int32_t*)rdlens,
       (const int8_t*)refs, (const int32_t*)wlens, B, L, W,
       wide_tiles(W + 1, LOCAL), p, (int32_t*)out, (uint8_t*)ops, nops_bytes,

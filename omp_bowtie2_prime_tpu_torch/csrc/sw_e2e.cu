@@ -15,7 +15,8 @@
 // read held by the warp, only the rdlen real rows, strips of any width,
 // the trace in a device-memory scratch, a walk done by the whole warp a
 // run at a time, and, for reads past 160 rows or windows past 287
-// columns, a sweep over column tiles.
+// columns, a block a problem whose warps take a column tile each and run
+// the tiles as a wavefront.
 #include "sw_dp.cuh"
 
 // C entry point for ctypes. Shapes: reads int8 [B, L], pens int32 [B, L],
@@ -24,9 +25,9 @@
 // with nops_bytes = ceil((L + W + 1) / 4); trace is scratch of at least
 // trace_size bytes: for L <= 160 and W <= 287 (the narrow body) B * L * 128
 // (twice that for W >= 256), else (the wide body, column tiles of 256)
-// B * ceil((W + 1) / 256) * L * 128 + B * L * 16. Requires 1 <= L <= 1024
-// and W <= 4096. Launches on the stream and does not wait. Returns the
-// cudaError_t of the launch (0 on success).
+// B * ceil((W + 1) / 256) * L * 128, plus B * L * 8 past 8 tiles. Requires
+// 1 <= L <= 1024 and W <= 4096. Launches on the stream and does not wait.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int sw_e2e_backtrace_launch(
     const void* reads, const void* pens, const void* rdlens, const void* refs,
     const void* wlens, int B, int L, int W, int rdg_open, int rdg_ext,

@@ -20,8 +20,9 @@
 // __reduce_max_sync over a key that packs score and column, and the stop
 // bit (H == 0) is a fourth bit beside the cell's other trace bits, so the
 // walk reads one word a cell. Reads past 160 rows and windows past 287
-// columns are swept in column tiles, and the best cell is merged across
-// them by score, then row.
+// columns are cut into column tiles, a warp of the problem's block each,
+// and the best cell is merged across them by score, then row, then
+// column.
 #include "sw_dp.cuh"
 
 // C entry point for ctypes. Shapes: reads int8 [B, L], pens int32 [B, L],
@@ -30,9 +31,10 @@
 // uint8 [B, nops_bytes] with nops_bytes = ceil((L + W + 1) / 4); trace is
 // scratch of at least trace_size bytes: for L <= 160 and W <= 287 (the
 // narrow body) B * L * 128 (twice that for W >= 192), else (the wide body,
-// column tiles of 192) B * ceil((W + 1) / 192) * L * 128 + B * L * 16.
-// Requires 1 <= L <= 1024 and W <= 4096. Launches on the stream and does
-// not wait. Returns the cudaError_t of the launch (0 on success).
+// column tiles of 192) B * ceil((W + 1) / 192) * L * 128, plus B * L * 8
+// past 8 tiles. Requires 1 <= L <= 1024 and W <= 4096. Launches on the
+// stream and does not wait. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int sw_local_backtrace_launch(
     const void* reads, const void* pens, const void* rdlens, const void* refs,
     const void* wlens, int B, int L, int W, int rdg_open, int rdg_ext,

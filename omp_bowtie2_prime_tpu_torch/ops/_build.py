@@ -7,7 +7,9 @@ The library's name carries a hash of the sources, the headers they share
 (``csrc/*.cuh``) and the flags, so an edit triggers a rebuild; ptxas'
 report of registers, shared memory and spills is kept beside it
 (``.log``). A failed build raises with nvcc's stderr: there is no
-fallback.
+fallback. Every function takes the directory of the sources and defaults
+to the package's ``csrc``: a timing tool may build and load a copy of it
+beside the package's own (scripts/torch_dp_variants.py).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}  # by source directory
 
 
 def _nvcc() -> str:
@@ -37,28 +39,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str = CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
 
 
-def library_path() -> str:
+def library_path(csrc: str = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for s in sources(csrc) + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libbt2kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
+def build(csrc: str = CSRC) -> str:
     """Compile the kernels unless a library for these sources exists."""
-    path = library_path()
+    path = library_path(csrc)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}"
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         obj = f"{tmp}.{os.path.basename(src)}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -91,12 +93,11 @@ def build() -> str:
     return path
 
 
-def get_lib() -> ctypes.CDLL:
+def get_lib(csrc: str = CSRC) -> ctypes.CDLL:
     """The kernel library, built on first call, with argtypes set."""
-    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
+        if csrc not in _libs:
+            lib = ctypes.CDLL(build(csrc))
             P, I, Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
             # inputs, (B, L, W), penalties, out, ops, nops_bytes, trace
             # scratch and its size, stream
@@ -108,5 +109,5 @@ def get_lib() -> ctypes.CDLL:
             lib.sw_local_backtrace_launch.argtypes = (
                 [P] * 5 + [I] * 3 + [I] * 7 + [P, P, I, P, Z, P]
             )
-            _lib = lib
-        return _lib
+            _libs[csrc] = lib
+        return _libs[csrc]

@@ -15,16 +15,20 @@ by (local, L, C), which tells the narrow body's from the wide body's
 The kernels take every shape the aligner frames: reads of up to
 ``L_MAX`` = 1024 rows and DPs of up to ``C_MAX`` = 4097 columns (window
 + column 0). Up to L = 160 and C = 288 a problem's row lives in its
-warp's registers (the narrow body); past that the warp sweeps column
-tiles of at most 256 columns end to end and 192 in local mode (the wide
-body). A shape past the limits raises.
+warp's registers (the narrow body); past that the DP is cut into column
+tiles of at most 256 columns end to end and 192 in local mode, a block
+takes a problem and each of its warps a tile, and the tiles run as a
+wavefront that hands its edge on through shared memory (the wide body;
+``wide_warps`` and ``wide_passes`` say how a block is cut). A shape past
+the limits raises.
 
 A launch keeps its trace bits in a scratch tensor on the device, allocated
 here: ``trace_bytes`` says how large. Narrow, per problem: L * 128 bytes
 up to C = 256 end to end and C = 192 in local mode, twice that beyond
 (20 KB and 40 KB at L = 160). Wide, per problem: L * 128 bytes a column
-tile plus L * 16 bytes for what crosses the tiles' edges (656 KiB at
-L = 1024, C = 1057 end to end, 784 KiB in local mode). ``max_batch`` is
+tile (640 KiB at L = 1024, C = 1057 end to end, 768 KiB in local mode)
+and, only for a DP of more tiles than a block has warps, L * 8 bytes for
+the one tile edge that crosses device memory. ``max_batch`` is
 the rule that bounds one launch's B by that scratch: the aligner cuts its
 problem lists into chunks of that size.
 """
@@ -45,6 +49,8 @@ C_MAX = 4097  # widest DP (window + column 0) the kernels take
 L_NARROW = 160  # the narrow body: L <= 160 and C <= 288
 C_NARROW = 288
 BATCH_MAX = 8192  # most problems of one launch, whatever the shape
+S_WIDE = {False: 8, True: 6}  # widest strip of a wide tile, by local mode
+WIDE_WARPS = 8  # most warps (column tiles in flight) of a wide block
 # scratch one launch may take: the kernels' trace on the card, the plain
 # versions' trace tensor (B * L * C bytes) on the CPU
 SCRATCH_BUDGET = {"cuda": 1 << 30, "cpu": 1 << 28}
@@ -87,20 +93,39 @@ def is_narrow(L: int, C: int) -> bool:
     return L <= L_NARROW and C <= C_NARROW
 
 
+def wide_tiles(C: int, local: bool) -> int:
+    """Column tiles of a wide launch of C columns (csrc/sw_dp.cuh has the
+    same rule, as it has ``wide_warps`` and ``wide_passes``)."""
+    return -(-C // (32 * S_WIDE[local]))
+
+
+def wide_warps(C: int, local: bool) -> int:
+    """Warps of a wide launch's block: one a column tile, at most
+    WIDE_WARPS."""
+    return min(wide_tiles(C, local), WIDE_WARPS)
+
+
+def wide_passes(C: int, local: bool) -> int:
+    """Passes in which a block's warps sweep the tiles (warp w takes tiles
+    w, w + WIDE_WARPS, ...)."""
+    return -(-wide_tiles(C, local) // WIDE_WARPS)
+
+
 def trace_bytes(B: int, L: int, C: int, local: bool) -> int:
     """Bytes of scratch one launch needs (csrc/sw_dp.cuh sizes it the same
     way and refuses less). Narrow body: every lane of a problem's warp
     stores one 32-bit word a row, or two when its strip of ceil(C / 32)
     columns has more trace bits (4 a cell, 5 in local mode) than a word
     holds. Wide body: one word a lane a row for each column tile (256
-    columns end to end, 192 in local mode), then two buffers of one
-    (edge H, scan value) pair a row."""
+    columns end to end, 192 in local mode), then, for a DP of more than
+    one pass, one (edge H, scan value) pair a row for the pass boundary;
+    every other tile edge stays in shared memory."""
     if is_narrow(L, C):
         strip = -(-C // 32)
         words = 1 if (5 if local else 4) * strip <= 32 else 2
         return B * L * 32 * 4 * words
-    tiles = -(-C // (32 * (6 if local else 8)))
-    return B * tiles * L * 32 * 4 + 2 * B * L * 8
+    edge = B * L * 8 if wide_passes(C, local) > 1 else 0
+    return B * wide_tiles(C, local) * L * 32 * 4 + edge
 
 
 def max_batch(L: int, C: int, local: bool, device_type: str) -> int:

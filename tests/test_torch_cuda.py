@@ -1,7 +1,7 @@
 """The hand-written Hopper DP kernels (end-to-end and local) against their
 plain PyTorch versions, on the card, at the narrow shapes (a row in the
-warp's registers) and the wide ones (column tiles: L up to 1024, C past
-288). The kernels have no CPU mode: these
+warp's registers) and the wide ones (column tiles, a warp each: L up to
+1024, C past 288). The kernels have no CPU mode: these
 tests skip without a CUDA device. The file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -293,6 +293,107 @@ def test_long_gapped_paths(cuda):
             > 128  # > 512 ops in a row
 
 
+def _held(mode, args):
+    """One wide launch against the plain version, bit for bit."""
+    p, _gen, plain, wrapper = _MODES[mode]
+    assert not sw_cuda.is_narrow(args[0].shape[1], args[3].shape[1] + 1)
+    want = plain(*args, p)
+    got = wrapper(*args, p)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# the wide body takes a block a problem and a warp a column tile, the
+# tiles of a problem running as a wavefront that hands chunks of rows on
+# through rings in shared memory. What that can get wrong:
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("L,W", [(1024, 1056), (160, 640), (40, 2048)])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_wide_kernel_few_problems(cuda, mode, B, L, W):
+    """Launches of one, two and three blocks."""
+    args = [a[:B].contiguous().to(cuda)
+            for a in _MODES[mode][1](L + W + B, 8, L, W)]
+    _held(mode, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("B,L,W", [(64, 1024, 1056), (64, 160, 640),
+                                   (48, 300, 2300)])
+def test_wide_kernel_live_tiles_differ(cuda, mode, B, L, W):
+    """Windows of every length from 0 to W in one launch: the blocks have
+    from one live warp to all, and in the widest shape the last pass of
+    some holds fewer live tiles than warps."""
+    args = _MODES[mode][1](L + W, B, L, W)
+    args[4][:] = torch.linspace(0, W, B).to(torch.int32)
+    args[2][::2] = L  # half of the reads as long as the matrix
+    _held(mode, [a.to(cuda) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("B,L,W", [(12, 1024, 2048), (6, 1024, 4096),
+                                   (24, 40, 2048), (24, 40, 4096)])
+def test_wide_kernel_more_tiles_than_warps(cuda, mode, B, L, W):
+    """C = 2,049 and 4,097: 9 to 22 tiles on 8 warps, swept in passes, the
+    pass boundary's edge through device memory; every window full."""
+    args = _MODES[mode][1](L + W + 1, B, L, W)
+    args[4][:] = W
+    assert sw_cuda.wide_passes(W + 1, mode == "local") >= 2
+    _held(mode, [a.to(cuda) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+@pytest.mark.parametrize("rdlen", [1, 7, 8, 9, 15, 16, 17, 31, 32, 33])
+def test_wide_kernel_rows_around_a_chunk(cuda, mode, rdlen):
+    """Reads one row short of the rows handed over at a time (8), as
+    long, one longer, and the same around multiples; one row."""
+    args = _MODES[mode][1](rdlen, 40, 64, 600)
+    args[2][:] = rdlen
+    args[4][::2] = 600
+    _held(mode, [a.to(cuda) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+def test_wide_kernel_ring_wraps(cuda, mode):
+    """1,024 rows over one tile boundary: the ring between the two warps
+    is overwritten many times."""
+    args = _MODES[mode][1](17, 40, 1024, 300)
+    args[2][:] = 1024
+    args[4][:] = 300
+    assert sw_cuda.wide_warps(301, mode == "local") == 2
+    _held(mode, [a.to(cuda) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e2e", "local"])
+def test_wide_kernel_two_streams_at_once(cuda, mode):
+    """Two launches in flight on two streams, each with its own scratch."""
+    p, gen, plain, wrapper = _MODES[mode]
+    sets = [[a.to(cuda) for a in gen(s, 200, 1024, 1056)] for s in (21, 22)]
+    wants = [plain(*args, p) for args in sets]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    gots = []
+    for _ in range(3):  # several rounds, so that launches overlap
+        gots = []
+        for s, args in zip(streams, sets):
+            with torch.cuda.stream(s):
+                gots.append(wrapper(*args, p))
+    for s in streams:
+        s.synchronize()
+    for got, want in zip(gots, wants):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 def test_launch_refuses_a_short_scratch(cuda):
     """The library sizes the scratch as sw_cuda.trace_bytes does: one byte
@@ -301,7 +402,8 @@ def test_launch_refuses_a_short_scratch(cuda):
 
     lib = _build.get_lib()
     for local, (B, L, W) in [(False, (8, 160, 200)), (True, (8, 160, 200)),
-                             (False, (8, 512, 600)), (True, (8, 512, 600))]:
+                             (False, (8, 512, 600)), (True, (8, 512, 600)),
+                             (False, (4, 200, 2100)), (True, (4, 200, 2100))]:
         args = [a.to(cuda) for a in _problems(1, B, L, W)]
         nops = -(-(L + W + 1) // 4)
         out = torch.empty((5, B), dtype=torch.int32, device=cuda)

@@ -165,7 +165,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(wrapper):
 def test_wrapper_and_header_agree_on_limits_and_scratch():
     """sw_cuda.trace_bytes must size the scratch as csrc/sw_dp.cuh does
     (the launch refuses less): the limits of the two bodies, the widest
-    strip of a wide tile in each mode, the words of a wide launch."""
+    strip of a wide tile in each mode, the words of a wide launch, and
+    the edge pairs of the pass boundary, which only a DP of more tiles
+    than a block has warps needs."""
     with open(os.path.join(_ROOT, "omp_bowtie2_prime_tpu_torch", "csrc",
                            "sw_dp.cuh")) as f:
         src = f.read()
@@ -176,14 +178,20 @@ def test_wrapper_and_header_agree_on_limits_and_scratch():
     assert const["L_NARROW"] == sw_cuda.L_NARROW == 160
     assert 32 * const["S_MAX"] == sw_cuda.C_NARROW == 288
     assert (const["S_WIDE_E2E"], const["S_WIDE_LOCAL"]) == (8, 6)
+    assert (const["S_WIDE_E2E"], const["S_WIDE_LOCAL"]) == (
+        sw_cuda.S_WIDE[False], sw_cuda.S_WIDE[True])
+    assert const["WIDE_WARPS"] == sw_cuda.WIDE_WARPS == 8
     assert "(size_t)B * wide_tiles(C, local) * L * 32" in src
-    assert "* 4 + (size_t)2 * B * L * 8" in src
+    assert "wide_passes(C, local) > 1 ? (size_t)B * L * 8 : 0" in src
+    assert ("wide_trace_words(B, L, C, local) * 4 + "
+            "wide_edge_bytes(B, L, C, local)") in src
     for local, smax in ((False, 8), (True, 6)):
         for L, C in ((1024, 1057), (161, 33), (160, 289), (700, 32 * smax),
-                     (700, 32 * smax + 1)):
+                     (700, 32 * smax + 1), (1024, 8 * 32 * smax),
+                     (1024, 8 * 32 * smax + 1), (40, 4097)):
             tiles = -(-C // (32 * smax))
             assert sw_cuda.trace_bytes(3, L, C, local) == \
-                3 * tiles * L * 32 * 4 + 2 * 3 * L * 8
+                3 * tiles * L * 32 * 4 + (3 * L * 8 if tiles > 8 else 0)
     # a wide tile keeps one trace word a lane: 4 (5) bits a cell fit 32
     assert 4 * 8 <= 32 and 5 * 6 <= 32 < 5 * 7
 
@@ -202,6 +210,11 @@ def test_smoke_cases_cover_the_new_shapes(smoke):
                 (1024, 1089), (160, 601), (300, 1101)} <= held
         assert cases["L1024"][0] == 256
         assert cases["L1024 B2048"][4] is False  # timed only
+        # the launch sizes around the aligner's, and the rescue window
+        assert cases["L1024 B64"][:3] == (64, 1024, 1056)
+        assert cases["L1024 B512"][:3] == (512, 1024, 1056)
+        assert cases["L1024 B64"][4] and cases["L1024 B512"][4]
+        assert cases["rescue"][:3] == (2048, 160, 640) and cases["rescue"][4]
         assert cases["bridge ragged"][3] == dict(
             ragged=True, degenerate=True, n_inside=True)
         assert cases["L512 N inside"][3]["n_inside"]
@@ -230,6 +243,10 @@ def test_kernel_entries_by_body(smoke):
     assert narrow["shape"] == dict(B=8192, L=160, C=201)
     assert wide["shape"] == dict(B=256, L=1024, C=1057)
     assert narrow["ms"] == 1.0 and wide["plain_ms"] == 9.0
+    # every time in an entry is one of this run's rows: none is a constant
+    times = {r["ms"] for r in rows}
+    assert narrow["ms"] in times and wide["ms"] in times
+    assert not [k for k in wide if k.startswith("earlier")]
     assert len(narrow["shapes"]) + len(wide["shapes"]) == len(rows)
     need = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}

@@ -154,19 +154,22 @@ def test_gather_ref_windows_wide():
 
 
 @pytest.mark.parametrize("L,C,local,want", [
-    (1024, 1057, False, 5 * 1024 * 128 + 1024 * 16),
-    (1024, 1057, True, 6 * 1024 * 128 + 1024 * 16),
-    (256, 289, False, 2 * 256 * 128 + 256 * 16),
-    (160, 513, True, 3 * 160 * 128 + 160 * 16),
-    (161, 201, False, 161 * 128 + 161 * 16),  # one tile, but past L = 160
-    (160, 289, False, 2 * 160 * 128 + 160 * 16),  # one past C = 288
-    (1024, 4097, True, 22 * 1024 * 128 + 1024 * 16),
+    (1024, 1057, False, 5 * 1024 * 128),
+    (1024, 1057, True, 6 * 1024 * 128),
+    (256, 289, False, 2 * 256 * 128),
+    (160, 513, True, 3 * 160 * 128),
+    (161, 201, False, 161 * 128),  # one tile, but past L = 160
+    (160, 289, False, 2 * 160 * 128),  # one past C = 288
+    (1024, 2048, False, 8 * 1024 * 128),  # the last DP of one pass
+    (1024, 2049, False, 9 * 1024 * 128 + 1024 * 8),
+    (1024, 4097, True, 22 * 1024 * 128 + 1024 * 8),
     (160, 288, False, 2 * 160 * 128),  # the narrow body's last shape
 ])
 def test_trace_scratch_size_wide(L, C, local, want):
     """Past L = 160 or C = 288 a problem takes one word a lane a row for
-    every column tile (256 columns end to end, 192 in local mode) and two
-    (edge H, scan) pairs a row."""
+    every column tile (256 columns end to end, 192 in local mode); the
+    tiles' edges cross in shared memory, but for a DP of more than 8 tiles
+    one (edge H, scan) pair a row crosses device memory."""
     assert sw_cuda.trace_bytes(1, L, C, local) == want
     assert sw_cuda.trace_bytes(7, L, C, local) == 7 * want
 
@@ -187,7 +190,7 @@ def test_chunk_rule():
         assert sw_cuda.trace_bytes(b + 1, L, C, local) > 1 << 30
         bc = mb(L, C, local, "cpu")
         assert bc * L * C <= 1 << 28 < (bc + 1) * L * C
-    assert mb(1024, 1057, False, "cuda") == (1 << 30) // 671744 == 1598
+    assert mb(1024, 1057, False, "cuda") == (1 << 30) // 655360 == 1638
     assert sw_cuda.L_MAX == AlignOpts().l_hard == 1024
     assert sw_cuda.C_MAX >= 2049
 
