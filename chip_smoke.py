@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py [--profile] [--sass]
 
-Drives the port's three main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
-``align -U`` end to end, ``align -U --local``, and both again on long
-reads against a reference with N runs) at a real size: two 4.6 Mbp genomes
-(a bacterium's size), 25,000 simulated reads for the end-to-end path,
-50,000 for the local one and 10,000 of 100 to 1,000 bp for the long one.
+Drives the port's main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
+``align -U`` end to end, ``align -U --local``, both again on long reads
+against a reference with N runs, and ``align -1 -2`` paired, end to end and
+``--local``) at a real size: two 4.6 Mbp genomes (a bacterium's size),
+25,000 simulated reads for the end-to-end path, 50,000 for the local one,
+10,000 of 100 to 1,000 bp for the long one and 20,000 pairs of 2 x 150 bp
+for the paired one.
 Phases, one line each, stamped with the seconds since the start:
 
   1. the device: its name and power limit (nvidia-smi);
@@ -36,13 +38,21 @@ Phases, one line each, stamped with the seconds since the start:
      long reads, XN of the reads across a short N run, every record
      inside its sequence, the first reads' SAM against the CPU run, and
      the counters that show the kernels ran at the new shapes;
-  8. every (L, C) that the runs of phases 5 to 7 launched a kernel at
+  8. the paired path: 20,000 pairs of 2 x 150 bp (FR, fragments of
+     200-480 bp, both strands) from phase 5's genome, with planted pairs
+     whose one mate only mate rescue can find (its exact seeds all
+     broken), discordant pairs and pairs with a random mate, once end to
+     end (K1) and once with ``--local`` (K2): the concordant, rescued and
+     discordant shares, mate 1's placement and the fragment length, the
+     rescue's launches at L=160, C=641 (the kernels' wide body) and the
+     first pairs' SAM against the CPU run;
+  9. every (L, C) that the runs of phases 5 to 8 launched a kernel at
      (``sw_cuda.SHAPES``) and that phase 3 did not hold: the kernel
      against its plain version there too, so that no shape of the main
      paths goes unchecked.
 
-``--profile`` adds one run of each path under torch.profiler and prints the device's busy share and the kernels' time
-by name. ``--sass`` adds to phase 2 the instruction mix of one DP row of
+``--profile`` adds one run of each path under torch.profiler and prints
+the device's busy share and the kernels' time by name. ``--sass`` adds to phase 2 the instruction mix of one DP row of
 each kernel (cuobjdump).
 
 Then one JSON line describing the kernels (each DP kernel's narrow and
@@ -76,6 +86,11 @@ N_READS = {"e2e": 25_000, "local": 50_000, "long": 10_000}
 N_CPU_READS = 1_000
 N_CPU_READS_LONG = 100  # the plain DP at 1,024 rows is slow on the CPU
 LONG_LENS = (100, 150, 250, 500, 1000)
+N_PAIRS = 20_000
+N_CPU_PAIRS = 500
+# the paired path's kinds of pair and their shares
+PLAIN, RESCUE, DISCORD, RANDOM_MATE = range(4)
+PAIR_SHARES = (0.85, 0.10, 0.03, 0.02)
 # The card's rates for the bounds. Device memory: 3.35 TB/s. Integer
 # add/max/compare outside the tensor cores: half of the 67 TFLOP/s float32
 # rate. An SM has 64 int32 lanes beside 128 float32 lanes, and Hopper's
@@ -232,7 +247,7 @@ def kernel_cases(local):
     end); a --dpad window on short reads (C=513); a mate-rescue window on
     short reads (C=641, the default maximum fragment plus margins);
     low-complexity problems whose best cells tie across column tiles
-    (C > 512). What the paths launch beyond these is held by phase 8. A
+    (C > 512). What the paths launch beyond these is held by phase 9. A
     case with compare False is timed only (its shape is held at a smaller
     B)."""
     fl = dict(flanks=local)
@@ -358,13 +373,13 @@ def check_kernel(tag, rng):
 
 
 def hold_seen(tag, rng, entries, held, seen):
-    """Phase 8: the kernel against its plain version at every (L, C) the
+    """Phase 9: the kernel against its plain version at every (L, C) the
     main paths launched it at and no case has held yet, on 64 problems
     with reads near L rows long and N runs in the windows."""
     for L, C in sorted(set(seen) - held):
         row = hold_case(tag, rng, f"seen L{L} C{C}", 64, L, C - 1,
                         dict(lens=(max(1, L - 30), max(1, L - 5)),
-                             flanks=tag == "K2", n_inside=True), phase=8)
+                             flanks=tag == "K2", n_inside=True), phase=9)
         entries[sw_cuda.is_narrow(L, C)]["shapes"].append(row)
         held.add((L, C))
 
@@ -482,7 +497,81 @@ def make_data(wd):
         f"1-3 bp indel, both strands); in the local set {n_fl} reads carry "
         "5-30 bp of random flank at one or both ends; index built in "
         f"{time.perf_counter() - t0:.1f} s")
-    return idx, sets
+    return idx, sets, text
+
+
+def simulate_mate(rng, text, p, fw, ln=150):
+    """(seq, has_indel): text[p:] as a mate of ln bases, 0-3
+    substitutions, a 1-3 bp indel in 10% of mates, reverse-complemented
+    unless fw."""
+    seq = text[p : p + ln + 8].copy()
+    indel = rng.random() < 0.1
+    if indel:
+        k = int(rng.integers(1, 4))
+        q = int(rng.integers(20, ln - 20))
+        seq = (np.concatenate([seq[:q], seq[q + k :]]) if rng.random() < 0.5
+               else np.concatenate([seq[:q], rng.integers(0, 4, k).astype(
+                   np.int8), seq[q:]]))
+    seq = seq[:ln]
+    for m in rng.integers(0, ln, int(rng.integers(0, 4))):
+        seq[m] = (seq[m] + 1 + rng.integers(0, 3)) % 4
+    return (seq if fw else 3 - seq[::-1]), indel
+
+
+def make_paired_data(wd, text):
+    """Phase 4, paired path: N_PAIRS pairs of 2 x 150 bp from phase 5's
+    genome, FR, fragments of 200-480 bp, the fragment on either strand,
+    mates as ``simulate_mate`` makes them. Planted (PAIR_SHARES): a pair
+    of kind RESCUE has one mate mutated every 13 bp at quality 2, so that
+    none of its exact seeds survives and mate rescue must find it; a
+    DISCORD pair has its mates 2-20 kb apart (both unique); a RANDOM_MATE
+    pair has one mate of random sequence. Writes the mates' FASTQ files
+    and the first N_CPU_PAIRS pairs' beside them. Returns (the input
+    arguments, the head's, per pair: kind, mate 1's origin, fragment
+    length, an indel in either mate)."""
+    rng = np.random.default_rng(SEED + 3)
+    n, ln = N_PAIRS, 150
+    kind = rng.choice(len(PAIR_SHARES), n, p=PAIR_SHARES)
+    origin = np.zeros(n, np.int64)
+    frag = rng.integers(200, 481, n)
+    indel = np.zeros(n, bool)
+    paths = [os.path.join(wd, f"pairs_{m}.fq") for m in (1, 2)]
+    heads = [p[:-3] + ".head.fq" for p in paths]
+    files = [open(p, "w") for p in paths + heads]
+    for i in range(n):
+        gap = int(rng.integers(2_000, 20_001)) if kind[i] == DISCORD else 0
+        start = int(rng.integers(0, len(text) - 21_000))
+        right = start + gap + int(frag[i]) - ln
+        a, ia = simulate_mate(rng, text, start, True)
+        b, ib = simulate_mate(rng, text, right, False)
+        indel[i] = ia or ib
+        if rng.random() < 0.5:  # the fragment on the forward strand
+            mates, origin[i] = [a, b], start
+        else:
+            mates, origin[i] = [b, a], right
+        quals = [rng.integers(2, 41, ln) for _ in range(2)]
+        k = int(rng.integers(0, 2))  # the planted mate
+        if kind[i] == RESCUE:
+            mates[k] = mates[k].copy()
+            mates[k][6::13] = (mates[k][6::13] + 1) % 4
+            quals[k][:] = 2
+        elif kind[i] == RANDOM_MATE:
+            mates[k] = rng.integers(0, 4, ln).astype(np.int8)
+        for m in range(2):
+            rec = (f"@s{i}/{m + 1}\n{decode(mates[m])}\n+\n"
+                   f"{(quals[m] + 33).astype(np.uint8).tobytes().decode()}\n")
+            files[m].write(rec)
+            if i < N_CPU_PAIRS:
+                files[2 + m].write(rec)
+    for f in files:
+        f.close()
+    log(f"[4] paired data: {n} pairs of 2 x {ln} bp from the {GENOME_BP} bp "
+        f"genome, fragments of 200-480 bp; {int((kind == RESCUE).sum())} "
+        f"with a mate only rescue can find, {int((kind == DISCORD).sum())} "
+        f"discordant (2-20 kb apart), {int((kind == RANDOM_MATE).sum())} "
+        f"with a random mate; {int(indel.sum())} with a 1-3 bp indel")
+    return (["-1", paths[0], "-2", paths[1]], ["-1", heads[0], "-2", heads[1]],
+            (kind, origin, frag, indel))
 
 
 def make_long_data(wd):
@@ -583,7 +672,10 @@ def sam_records(path):
 
 
 def align(idx, fq, sam, device, local, flags=()):
-    return cli.main(["align", "-x", idx, "-U", fq, "-S", sam,
+    """One ``align`` call of the port's CLI: ``fq`` is a FASTQ of single
+    reads (-U) or a list of input arguments (-1 m1.fq -2 m2.fq)."""
+    inputs = ["-U", fq] if isinstance(fq, str) else list(fq)
+    return cli.main(["align", "-x", idx, *inputs, "-S", sam,
                      "--device", device, *flags]
                     + (["--local"] if local else []))
 
@@ -613,8 +705,9 @@ def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
     sam_flags = np.array([int(r.split("\t", 2)[1]) for r in recs])
     frac = float(((sam_flags & 4) == 0).mean())
     opts = " ".join((*flags, *(["--local"] if local else [])))
-    log(f"[{phase}] align {opts} on cuda: {n_reads} "
-        f"reads in {wall:.2f} s = {n_reads / wall:.1f} reads/s (wall, index "
+    log(f"[{phase}] align {'' if isinstance(fq, str) else 'pairs '}{opts} "
+        f"on cuda: {n_reads} reads in {wall:.2f} s = {n_reads / wall:.1f} "
+        "reads/s (wall, index "
         f"load included); aligned {100 * frac:.2f}%; K1 launches "
         f"{launches[0]}, K2 launches {launches[1]}; native finisher "
         f"{'used' if finishes else 'NOT used'} ({finishes} batches)")
@@ -798,6 +891,87 @@ def run_long(idx, fq, head, truth, wd, local):
     return shapes, wall
 
 
+def _mate_extent(fields):
+    """(start, end, leading clip, trailing clip) of one aligned record on
+    its sequence, the soft clips counted in."""
+    cig = re.findall(r"(\d+)([MIDNSHP=X])", fields[5])
+    lead = int(cig[0][0]) if cig[0][1] == "S" else 0
+    trail = int(cig[-1][0]) if cig[-1][1] == "S" and len(cig) > 1 else 0
+    span = sum(int(n) for n, op in cig if op in "MDN=X")
+    start = int(fields[3]) - 1
+    return start - lead, start + span + trail, lead, trail
+
+
+def run_paired(idx, data, wd, local):
+    """Phase 8, one mode: the pairs of ``make_paired_data`` end to end
+    (K1) or with --local (K2). Checks, each a failure when missed: at least
+    95% of the plain pairs concordant (YT:Z:CP); at least 99% of the plain,
+    indel-free concordant pairs with MAPQ >= 20 have mate 1 at its origin
+    (POS less the leading clip) and |TLEN| plus the outer soft clips equal
+    to the fragment; at least 90% of the RESCUE pairs concordant; a launch
+    at mate rescue's shape (L = l_max, C = _rescue_cols() + 1 = 641: the
+    kernels' wide body); at least 90% of the DISCORD pairs discordant
+    (YT:Z:DP); the first N_CPU_PAIRS pairs' SAM that of the CPU run.
+    Returns (launches by (L, C), wall seconds)."""
+    from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+
+    inputs, head, (kind, origin, frag, indel) = data
+    tag = "paired --local" if local else "paired"
+    recs, _flags, _frac, wall, al, shapes = timed_align(
+        8, idx, inputs, os.path.join(wd, f"gpu_pairs{int(local)}.sam"),
+        local, 2 * N_PAIRS)
+    yt = collections.Counter()
+    by_kind = collections.defaultdict(collections.Counter)
+    ok_pos = tot = 0
+    for i in range(N_PAIRS):
+        f1, f2 = recs[2 * i].split("\t"), recs[2 * i + 1].split("\t")
+        if f1[0] != f"s{i}" or f2[0] != f"s{i}":
+            raise AssertionError(f"{tag}: records out of order at pair {i}")
+        t = next(x[5:] for x in f1[11:] if x.startswith("YT:Z:"))
+        yt[t] += 1
+        by_kind[kind[i]][t] += 1
+        if (kind[i] != PLAIN or indel[i] or t != "CP"
+                or int(f1[4]) < 20):
+            continue
+        tot += 1
+        e1, e2 = _mate_extent(f1), _mate_extent(f2)
+        left, right = (e1, e2) if e1[0] <= e2[0] else (e2, e1)
+        ok_pos += (e1[0] == origin[i]
+                   and abs(int(f1[8])) + left[2] + right[3] == frag[i])
+    n_kind = collections.Counter(kind.tolist())
+    share = {k: by_kind[k][t] / max(n_kind[k], 1) for k, t in
+             ((PLAIN, "CP"), (RESCUE, "CP"), (DISCORD, "DP"))}
+    pos_frac = ok_pos / max(tot, 1)
+    C = PairedAligner(al)._rescue_cols() + 1
+    L = al.opts.l_max
+    m = al.metrics
+    log(f"[8] {tag}: pairs YT:Z:CP {yt['CP']}, DP {yt['DP']}, UP "
+        f"{yt['UP']}; concordant: plain {100 * share[PLAIN]:.2f}%, rescue "
+        f"{100 * share[RESCUE]:.2f}%; discordant pairs at DP "
+        f"{100 * share[DISCORD]:.2f}%; mate 1 at its origin and the "
+        f"fragment's length for {ok_pos}/{tot} plain indel-free concordant "
+        f"pairs with MAPQ >= 20 ({100 * pos_frac:.2f}%)")
+    log(f"[8] {tag}: dps_rescue {m.dps_rescue}, dps_wide {m.dps_wide}; "
+        f"mate rescue's launches at L={L}, C={C}: {shapes.get((L, C), 0)}")
+    cpu_identity(8, idx, head, os.path.join(wd, f"cpu_pairs{int(local)}.sam"),
+                 local, recs, 2 * N_CPU_PAIRS)
+    if share[PLAIN] < 0.95:
+        raise AssertionError(f"{tag}: {share[PLAIN]:.4f} of the plain pairs "
+                             "concordant < 0.95")
+    if pos_frac < 0.99:
+        raise AssertionError(f"{tag}: placement {pos_frac:.4f} < 0.99")
+    if share[RESCUE] < 0.9:
+        raise AssertionError(f"{tag}: {share[RESCUE]:.4f} of the rescue "
+                             "pairs concordant < 0.90")
+    if shapes.get((L, C), 0) <= 0:
+        raise AssertionError(f"{tag}: no launch at mate rescue's shape "
+                             f"L={L}, C={C}")
+    if share[DISCORD] < 0.9:
+        raise AssertionError(f"{tag}: {share[DISCORD]:.4f} of the "
+                             "discordant pairs at YT:Z:DP < 0.90")
+    return shapes, wall
+
+
 def main():
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -866,7 +1040,7 @@ def main():
 
     wd = tempfile.mkdtemp(prefix="bt2torch_smoke_")
     try:
-        idx, sets = make_data(wd)
+        idx, sets, text = make_data(wd)
         walls = {}
         shapes, walls["e2e"] = run_path(5, idx, sets["e2e"], wd, False)
         count("K1", "e2e", shapes)
@@ -876,6 +1050,11 @@ def main():
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[tag] = run_long(lidx, lfq, lhead, truth, wd, local)
             count(tag, "long --local" if local else "long --overhang", shapes)
+        pdata = make_paired_data(wd, text)
+        for tag, local in (("K1", False), ("K2", True)):
+            shapes, walls[f"paired{int(local)}"] = run_paired(idx, pdata, wd,
+                                                              local)
+            count(tag, "paired --local" if local else "paired", shapes)
         if want_profile:
             for mode in ("e2e", "local"):
                 profile_run(idx, sets[mode][0], os.path.join(wd, "prof.sam"),
@@ -884,13 +1063,17 @@ def main():
                         walls["K1"], ("--overhang",), "long e2e")
             profile_run(lidx, lfq, os.path.join(wd, "prof.sam"), True,
                         walls["K2"], (), "long local")
+            for local in (False, True):
+                profile_run(idx, pdata[0], os.path.join(wd, "prof.sam"),
+                            local, walls[f"paired{int(local)}"], (),
+                            "paired local" if local else "paired")
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 
     kernels = []
     for tag in ("K1", "K2"):
         todo = sorted(seen[tag] - held[tag])
-        log(f"[8] {tag}: launched at {len(seen[tag])} shapes on the main "
+        log(f"[9] {tag}: launched at {len(seen[tag])} shapes on the main "
             f"paths, {len(todo)} of them not held by phase 3: {todo}")
         hold_seen(tag, rng, entries[tag], held[tag], seen[tag])
         for narrow in (True, False):

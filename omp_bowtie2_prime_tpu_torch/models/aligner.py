@@ -26,7 +26,9 @@ for its unpaired path on one device, end to end or, with
                        tighten, MAPQ V2, results
 
 Rounds: 0, 1, then the half-read rescue round. The results are those of
-``TPUAligner.align_batch`` read for read.
+``TPUAligner.align_batch`` read for read. models/paired.py drives the
+same phases for read pairs (``collect_candidates`` per round, then mate
+rescue through ``_run_dp_bt``).
 """
 
 from __future__ import annotations
@@ -62,12 +64,19 @@ class AlignOpts:
     max_dp_per_read: int = 300  # maxDp
     maxhalf: int = 15  # --dpad
     l_max: int = 160  # longest read of the hot DP shape (ALN_MAX_ROWS)
+    # least mate-rescue window (PairedAligner._rescue_cols)
+    c_strict: int = 224
     l_hard: int = 1024  # longest read that aligns; longer ones come out
     # unaligned
     minsc_clamp: int = -254  # u8-build minimum-score clamp
     nrounds: int = 2  # -R
     dps: int = 15  # -D extension fail-streak budget
     seed_boost: int = 300  # --seed-boost re-seed gate
+    # --nofw / --norc: PairedAligner takes them as per-mate bans; the
+    # engine does not skip seeds by orientation yet (collect_candidates
+    # refuses them)
+    nofw: bool = False
+    norc: bool = False
     khits: int = 1  # -k
     allhits: bool = False  # -a
     rng_seed: int = 0  # --seed
@@ -75,6 +84,8 @@ class AlignOpts:
     grid_lanes_cap: int = 1 << 20  # grid lanes per chunk
     resolve_expand: float = 1.0  # SA slots per seed lane
     dp_cols: int = 200  # narrow DP window capacity
+    # the half-read rescue round (off = --no-1mm-upfront)
+    upfront_rescue: bool = True
     local: bool = False  # --local: soft-clipping local alignment
     # --overhang: alignments may hang off a reference's ends; the
     # positions past the end align against N and the overhanging read
@@ -693,7 +704,7 @@ class TorchAligner:
             if not active:
                 break
             cands, table = self.collect_candidates(reads, minscs, active,
-                                                   roundi)
+                                                   roundi, columnar=True)
             self.metrics.add(candidates=sum(len(c) for c in cands)
                              + (len(table) if table is not None else 0))
             with self.timers.phase("finishRead"):
@@ -707,9 +718,11 @@ class TorchAligner:
                     if self._hit_nonz[ri] == 0
                     or self._hit_elts[ri] // self._hit_nonz[ri] >= sb
                 ]
-        rescue = [ri for ri in range(n) if results[ri] is None]
+        rescue = ([ri for ri in range(n) if results[ri] is None]
+                  if self.opts.upfront_rescue else [])
         if rescue:
-            cands, table = self.collect_candidates(reads, minscs, rescue, -1)
+            cands, table = self.collect_candidates(reads, minscs, rescue, -1,
+                                                   columnar=True)
             self.metrics.add(candidates=sum(len(c) for c in cands)
                              + (len(table) if table is not None else 0))
             with self.timers.phase("finishRead"):
@@ -813,12 +826,23 @@ class TorchAligner:
         self._fc_cache = (minscs, out)
         return out
 
-    def collect_candidates(self, reads, minscs, active, roundi):
-        """Phases P2-P7 for one seeding round. Returns (cands, table):
-        per-read dicts {(fw, endj): Candidate} for reads with several
-        candidates, and a CandTable of the reads with exactly one."""
+    def collect_candidates(self, reads, minscs, active, roundi,
+                           columnar=False):
+        """Phases P2-P7 for one seeding round of the batch whose matrices
+        are built. Returns per-read dicts {(fw, endj): Candidate} ((fw,
+        diagonal) in local mode), bridge candidates last; with
+        ``columnar`` (cands, table): the dicts of the reads with several
+        candidates and a CandTable of the reads with exactly one."""
+        if self.opts.nofw or self.opts.norc:
+            raise NotImplementedError(
+                "--nofw/--norc seeding is not ported yet (ROADMAP.md, port "
+                "queue: the rest of the align option surface)")
+        cands, table = self._collect_round(len(reads), minscs, active,
+                                           roundi, columnar)
+        return (cands, table) if columnar else cands
+
+    def _collect_round(self, n, minscs, active, roundi, columnar):
         o = self.opts
-        n = len(reads)
         empty = ([{} for _ in range(n)], None)
         self._hit_nonz = np.zeros(n, np.int64)
         self._hit_elts = np.zeros(n, np.int64)
@@ -843,7 +867,8 @@ class TorchAligner:
             if not len(problems):
                 return empty
             return self._extend_and_collect(
-                minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all)
+                minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all,
+                columnar)
 
         # the device table overflowed (repeat-heavy batch): host path
         if not getattr(self, "_warned_mega_overflow", False):
@@ -935,12 +960,14 @@ class TorchAligner:
         if problems is None or not len(problems):
             return empty
         return self._extend_and_collect(
-            minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all)
+            minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all,
+            columnar)
 
     def _extend_and_collect(self, minscs, n, problems, lens_all, mgn_all,
-                            mgw_all, thr_all):
+                            mgw_all, thr_all, columnar):
         """P7 + P8a: batched DP, wide escalation, -D streak, candidate
-        collection. Returns (cands, CandTable | None)."""
+        collection. Returns (cands, CandTable | None); the table (reads
+        with one candidate) only with ``columnar``."""
         o = self.opts
         # windows across an N run inside a reference (and, with
         # --overhang, off a reference's end) leave the joined text: see
@@ -1093,7 +1120,7 @@ class TorchAligner:
             pis = vi[emit]
             riv_e = riv[emit]
             counts = np.bincount(riv_e, minlength=n)
-            is_single = counts[riv_e] == 1
+            is_single = (counts[riv_e] == 1) & columnar
             if bridge_cands:  # a read with a bridge entry is not single
                 br = np.zeros(n, bool)
                 br[[bri for bri, _k, _c in bridge_cands]] = True

@@ -104,8 +104,8 @@ class PipelineMetrics:
 
     FIELDS = (
         "reads", "seeds", "ranges_nonzero", "elts_resolved", "dps",
-        "dps_wide", "dps_bridge", "dps_irregular", "dp_cells", "candidates",
-        "backtraces",
+        "dps_wide", "dps_bridge", "dps_irregular", "dps_rescue", "dp_cells",
+        "candidates", "backtraces",
     )
 
     def __init__(self):

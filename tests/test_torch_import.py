@@ -1,6 +1,6 @@
-"""The port stands alone: it imports and aligns, end to end and in local
-mode, with jax, flax and the whole JAX package blocked, and no source
-file of it names that package in an import."""
+"""The port stands alone: it imports and aligns, end to end, in local
+mode and in pairs, with jax, flax and the whole JAX package blocked, and
+no source file of it names that package in an import."""
 
 import os
 import re
@@ -55,6 +55,18 @@ ok = sum(r.status == "aligned" and "S" in r.cigar_str for r in res)
 assert ok >= 45, ok
 print("LOCAL", len(res))
 
+from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+pairs = []
+for i in range(10):
+    p = int(rng.integers(0, len(text) - 400))
+    q = np.full(100, 30, np.uint8)
+    pairs.append((Read(i, f"p{i}", text[p : p + 100].copy(), q),
+                  Read(i, f"p{i}", dna.revcomp(text[p + 250 : p + 350]), q)))
+res = PairedAligner(TorchAligner(fm, device="cpu")).align_pairs(pairs)
+ok = sum(r.cat == "concord" and r.tlen1 == 350 for r in res)
+assert ok == 10, ok
+print("PAIRED", ok)
+
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m == "jax" or m.startswith(("jax.", "flax"))
     or m == "omp_bowtie2_prime_tpu"
@@ -70,6 +82,7 @@ def test_port_runs_without_jax_and_flax():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ALIGNED 50" in r.stdout
     assert "LOCAL 50" in r.stdout
+    assert "PAIRED 10" in r.stdout
 
 
 def test_no_source_imports_the_jax_package():

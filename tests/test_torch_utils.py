@@ -14,6 +14,7 @@ from omp_bowtie2_prime_tpu.io import sam as jsam
 from omp_bowtie2_prime_tpu.utils import cigar as jcigar
 from omp_bowtie2_prime_tpu.utils import dna as jdna
 from omp_bowtie2_prime_tpu.utils import mapq as jmapq
+from omp_bowtie2_prime_tpu.utils import pe as jpe
 from omp_bowtie2_prime_tpu.utils import presets as jpresets
 from omp_bowtie2_prime_tpu.utils import rng as jrng
 from omp_bowtie2_prime_tpu.utils import scoring as jscoring
@@ -24,6 +25,7 @@ from omp_bowtie2_prime_tpu_torch.io import sam as tsam
 from omp_bowtie2_prime_tpu_torch.utils import cigar as tcigar
 from omp_bowtie2_prime_tpu_torch.utils import dna as tdna
 from omp_bowtie2_prime_tpu_torch.utils import mapq as tmapq
+from omp_bowtie2_prime_tpu_torch.utils import pe as tpe
 from omp_bowtie2_prime_tpu_torch.utils import presets as tpresets
 from omp_bowtie2_prime_tpu_torch.utils import rng as trng
 from omp_bowtie2_prime_tpu_torch.utils import scoring as tscoring
@@ -180,6 +182,47 @@ def test_dna_and_suffix_array():
     nb, nz = tnative.bwt_from_sa_native(codes, np.asarray(jsa_))
     np.testing.assert_array_equal(nb, jb)
     assert nz == jz
+
+
+@pytest.mark.parametrize("pol", [1, 2, 3, 4], ids=["ff", "rr", "fr", "rf"])
+def test_pe_policy(pol):
+    """utils/pe.py: classification, mate direction and window, fragment
+    length over a seeded grid of offsets, spans, strands, insert bounds
+    and the geometry flags (dovetail, containment, overlap)."""
+    assert tpe.mate_fw_expectations(pol) == jpe.mate_fw_expectations(pol)
+    for m1fw in (True, False):
+        for m2fw in (True, False):
+            assert tpe.policy_from_flags(m1fw, m2fw) == \
+                jpe.policy_from_flags(m1fw, m2fw)
+    rng = np.random.default_rng(pol)
+    kinds = set()
+    for flags in range(16):
+        kw = dict(pol=pol, minfrag=int(rng.choice([0, 150, 300])),
+                  maxfrag=int(rng.choice([120, 250, 500])),
+                  dovetail_ok=bool(flags & 1), contain_ok=bool(flags & 2),
+                  olap_ok=bool(flags & 4), expand_to_fit=bool(flags & 8))
+        jp, tp = jpe.PEPolicy(**kw), tpe.PEPolicy(**kw)
+        for _ in range(150):
+            off1 = int(rng.integers(1000, 1400))
+            # equal starts: the containment that is no dovetail
+            off2 = off1 + int(rng.integers(-300, 300)) * (rng.random() > .2)
+            len1, len2 = (int(x) for x in rng.integers(20, 160, 2))
+            fw1, fw2 = (bool(x) for x in rng.integers(0, 2, 2))
+            args = (off1, len1, fw1, off2, len2, fw2)
+            got = tp.classify(*args)
+            assert got == jp.classify(*args)
+            kinds.add(got)
+            for is1 in (True, False):
+                assert tp.mate_dir(is1, fw1) == jp.mate_dir(is1, fw1)
+                for maxcols in (-1, len1 + 5):
+                    a = (is1, fw1, off1, maxcols, len1, len2)
+                    assert tp.other_mate_window(*a) == \
+                        jp.other_mate_window(*a)
+            fa = (off1, len1, fw1, bool(off1 % 2), off2, len2, fw2)
+            assert tpe.fragment_length(*fa) == jpe.fragment_length(*fa)
+    assert kinds == {tpe.PE_ALS_NORMAL, tpe.PE_ALS_OVERLAP,
+                     tpe.PE_ALS_CONTAIN, tpe.PE_ALS_DOVETAIL,
+                     tpe.PE_ALS_DISCORD}
 
 
 _FASTQ = """@r0 first/1
