@@ -46,14 +46,26 @@ Phases, one line each, stamped with the seconds since the start:
      discordant shares, mate 1's placement and the fragment length, the
      rescue's launches at L=160, C=641 (the kernels' wide body) and the
      first pairs' SAM against the CPU run;
-  9. every (L, C) that the runs of phases 5 to 8 launched a kernel at
+  9. every (L, C) that the runs of phases 5 to 10 launched a kernel at
      (``sw_cuda.SHAPES``) and that phase 3 did not hold: the kernel
      against its plain version there too, so that no shape of the main
-     paths goes unchecked.
+     paths goes unchecked;
+ 10. overlap: phase 5's reads and phase 8's pairs (end to end) again with
+     ``-p 2`` (a second aligner over the same index, on its own CUDA
+     stream, and a second align worker), and phase 5's reads through
+     ``align_stream`` over two aligners sharing the index (the next
+     batch's round 0 queued on the other stream while this batch's host
+     phases run): a warm run, then three timed runs of ``-p 1``, ``-p 2``
+     (and the stream) in turn; every run's SAM records byte-identical to
+     phase 5's or 8's, its K1 launches and launches by (L, C) equal to
+     theirs, the ``-p 2`` and stream runs' launches on the two aligners'
+     streams (two, neither the default stream); reads/s as median and
+     range with the card's name and power limit.
 
-``--profile`` adds one run of each path under torch.profiler and prints
-the device's busy share and the kernels' time by name. ``--sass`` adds to phase 2 the instruction mix of one DP row of
-each kernel (cuobjdump).
+``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
+torch.profiler and prints the device's busy share, the kernels' time by
+name and the count of streams the kernels ran on. ``--sass`` adds to
+phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
 
 Then one JSON line describing the kernels (each DP kernel's narrow and
 wide body is an entry of its own, with its own time, bound and launches,
@@ -680,26 +692,35 @@ def align(idx, fq, sam, device, local, flags=()):
                     + (["--local"] if local else []))
 
 
-def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
-    """One warm run and one timed run on the card, the launch counts set
-    to 0 just before the timed run and read just after. Logs reads/s, the
-    aligned fraction, the timers and the counters; returns (records,
-    flags column, aligned fraction, (K1 launches, K2 launches), wall
-    seconds, the aligner, the timed run's launches by (L, C)). Fails if
-    the run launched no kernel of its mode, launched the other mode's, or
-    bypassed the native finisher."""
-    align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
+def counted(run):
+    """run() on the card, every launch count set to 0 just before it and
+    read just after: (wall seconds, (K1, K2) launches, launches by (L,
+    C), launches by CUDA stream, native finisher batches, run()'s
+    result)."""
     sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
     sw_cuda.SHAPES.clear()
+    sw_cuda.STREAMS.clear()
     native.FINISH_CALLS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    al = align(idx, fq, sam, "cuda", local, flags)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL)
-    shapes = {(L, C): n for (_loc, L, C), n in sw_cuda.SHAPES.items()}
-    finishes = native.FINISH_CALLS
+    return (wall, (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL),
+            {(L, C): n for (_loc, L, C), n in sw_cuda.SHAPES.items()},
+            dict(sw_cuda.STREAMS), native.FINISH_CALLS, out)
+
+
+def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
+    """One warm run and one timed run on the card (``counted``). Logs
+    reads/s, the aligned fraction, the timers and the counters; returns
+    (records, flags column, aligned fraction, wall seconds, the aligner,
+    the timed run's launches by (L, C)). Fails if the run launched no
+    kernel of its mode, launched the other mode's, or bypassed the native
+    finisher."""
+    align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
+    wall, launches, shapes, _streams, finishes, al = counted(
+        lambda: align(idx, fq, sam, "cuda", local, flags))
     recs = sam_records(sam)
     assert len(recs) == n_reads, len(recs)
     sam_flags = np.array([int(r.split("\t", 2)[1]) for r in recs])
@@ -743,18 +764,20 @@ def cpu_identity(phase, idx, head, sam, local, recs, n_head, flags=()):
         raise AssertionError("cpu and cuda SAM records differ")
 
 
-def profile_run(idx, fq, sam, local, untraced_wall, flags=(), tag=None):
-    """One run under torch.profiler: the device's kernel and copy time by
+def profile_run(run, untraced_wall, tag, trace):
+    """run() under torch.profiler: the device's kernel and copy time by
     name (device-side events only, so that no kernel counts twice, once
-    for itself and once for the operator that launched it), and the busy
-    share of the same work's untraced wall (tracing slows the host)."""
+    for itself and once for the operator that launched it), the busy
+    share of the same work's untraced wall (tracing slows the host), and
+    the streams the kernels ran on (from the trace, written to
+    ``trace``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        align(idx, fq, sam, "cuda", local, flags)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [(getattr(e, "self_device_time_total",
@@ -764,7 +787,16 @@ def profile_run(idx, fq, sam, local, untraced_wall, flags=(), tag=None):
     if not rows:
         raise AssertionError("torch.profiler recorded no device time")
     dev_ms = sum(r[0] for r in rows) / 1e3
-    tag = tag or ("local" if local else "e2e")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    streams = collections.Counter(
+        e["args"].get("stream") for e in events
+        if e.get("cat") == "kernel" and "args" in e)
+    log(f"[P] {tag}: kernels on {len(streams)} stream(s): "
+        + ", ".join(f"stream {k}: {n}" for k, n in sorted(
+            streams.items(), key=lambda kv: str(kv[0]))))
     log(f"[P] {tag}: device time {dev_ms:.1f} ms in {sum(r[2] for r in rows)} "
         f"kernels and copies; traced wall {wall:.3f} s; busy share of the "
         f"untraced run's {untraced_wall:.3f} s: "
@@ -775,6 +807,106 @@ def profile_run(idx, fq, sam, local, untraced_wall, flags=(), tag=None):
         if "sw_dp_" in key:
             log(f"[P]   DP kernel {key[:40]}: {us / 1e3:.1f} ms in {count} "
                 f"launches = {100 * us / 1e3 / dev_ms:.1f}% of device time")
+
+
+def stream_align(idx, fq, sam):
+    """align_stream over two aligners sharing one index (share=): the
+    reads of ``fq`` in the CLI's batches with its default options, the
+    records written as the CLI writes them. Returns the first aligner."""
+    from omp_bowtie2_prime_tpu_torch.index.format import FMIndex
+    from omp_bowtie2_prime_tpu_torch.io.fastq import (batch_iterator,
+                                                      open_reads)
+    from omp_bowtie2_prime_tpu_torch.io.sam import SamWriter
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.pipeline import align_stream
+
+    args = cli.parse_args(["align", "-x", idx, "-U", fq, "-S", sam])
+    sc, opts = cli.align_config(args)
+    fm = FMIndex.load(idx)
+    a1 = TorchAligner(fm, sc, opts, device="cuda")
+    a2 = TorchAligner(fm, sc, opts, device="cuda", share=a1)
+    batches = list(batch_iterator(open_reads(fq), args.batch))
+    with open(sam, "w") as f:
+        w = SamWriter(f, fm.refmap.refnames, fm.refmap.reflens)
+        w.write_header()
+        align_stream([a1, a2], batches, emit_fn=lambda k, r:
+                     cli.write_unpaired(w, batches[k], r))
+    return a1
+
+
+def run_overlap(smi, idx, fq, pinputs, wd, base):
+    """Phase 10. base: {"e2e": (SAM, launches by (L, C)), "paired": ...}
+    of phases 5 and 8's timed runs (end to end, -p 1). For each path a
+    warm run of -p 2 (and of the stream), then three rounds of timed runs
+    of -p 1, -p 2 and, end to end, align_stream: each run's SAM records
+    must be base's byte for byte, its K1 launches by (L, C) base's (and
+    no K2 launch), the -p 2 and stream runs' launches on their two
+    aligners' streams, neither the default stream. Logs reads/s (median
+    and range) and a -p 2 run's timers. Returns ({"path kind": launches
+    by (L, C)}, {"path kind": median wall seconds})."""
+    default = torch.cuda.default_stream().cuda_stream
+    modes = {"e2e": (fq, N_READS["e2e"], ("-p 1", "-p 2", "stream")),
+             "paired": (pinputs, 2 * N_PAIRS, ("-p 1", "-p 2"))}
+    shapes_of, walls = {}, {}
+    for path, (inputs, n_reads, kinds) in modes.items():
+        ref_sam, ref_shapes = base[path]
+        want = sam_records(ref_sam)
+        sam = os.path.join(wd, f"overlap_{path}.sam")
+
+        def run(kind):
+            if kind == "stream":
+                return stream_align(idx, inputs, sam)
+            return align(idx, inputs, sam, "cuda", False,
+                         ("-p", kind[-1]))
+
+        for kind in kinds[1:]:
+            run(kind)  # warm
+        rates = collections.defaultdict(list)
+        for _ in range(3):
+            for kind in kinds:
+                wall, launches, shapes, streams, _fin, al = counted(
+                    lambda: run(kind))
+                recs = sam_records(sam)
+                if recs != want:
+                    i = next((i for i, (a, b) in enumerate(zip(recs, want))
+                              if a != b), min(len(recs), len(want)))
+                    raise AssertionError(
+                        f"{path} {kind}: SAM differs from -p 1's at record "
+                        f"{i} of {len(want)} ({len(recs)} written): "
+                        f"{recs[i][:200] if i < len(recs) else None!r} vs "
+                        f"{want[i][:200] if i < len(want) else None!r}")
+                if launches != (sum(ref_shapes.values()), 0) \
+                        or shapes != ref_shapes:
+                    raise AssertionError(
+                        f"{path} {kind}: launches {launches}, by shape "
+                        f"{shapes}; -p 1: {ref_shapes}")
+                if kind != "-p 1":
+                    mine = {a.stream.cuda_stream for a in (al, *al.peers)}
+                    if set(streams) != mine or len(mine) != 2 \
+                            or default in mine:
+                        raise AssertionError(
+                            f"{path} {kind}: launches by stream {streams}, "
+                            f"the aligners' streams {mine}, default "
+                            f"{default}")
+                rates[kind].append(n_reads / wall)
+                walls.setdefault(f"{path} {kind}", []).append(wall)
+                shapes_of[f"{path} {kind}"] = shapes
+                if kind == "-p 2":
+                    last_p2 = al
+        log(f"[10] {path}: every run's SAM byte-identical to -p 1's "
+            f"({len(want)} records), K1 launches by (L, C) equal to -p 1's "
+            f"({sum(ref_shapes.values())}), the -p 2"
+            + (" and stream" if "stream" in kinds else "")
+            + " runs' on two non-default streams")
+        log(f"[10] {path} reads/s (wall, index load included; three timed "
+            f"runs each, in turn; {smi}): " + "; ".join(
+                f"{kind} median {np.median(r):.1f} (range {min(r):.1f}-"
+                f"{max(r):.1f})" for kind, r in rates.items()))
+        for k, a in enumerate((last_p2, *last_p2.peers)):
+            for line in a.timers.render().splitlines():
+                log(f"[10]   {path} -p 2 aligner {k + 1}: {line}")
+            log(f"[10]   {path} -p 2 aligner {k + 1}: {a.metrics.render()}")
+    return shapes_of, {k: float(np.median(w)) for k, w in walls.items()}
 
 
 def run_path(phase, idx, readset, wd, local):
@@ -1041,9 +1173,10 @@ def main():
     wd = tempfile.mkdtemp(prefix="bt2torch_smoke_")
     try:
         idx, sets, text = make_data(wd)
-        walls = {}
+        walls, base = {}, {}
         shapes, walls["e2e"] = run_path(5, idx, sets["e2e"], wd, False)
         count("K1", "e2e", shapes)
+        base["e2e"] = (os.path.join(wd, "gpu_e2e.sam"), shapes)
         shapes, walls["local"] = run_path(6, idx, sets["local"], wd, True)
         count("K2", "local", shapes)
         lidx, lfq, lhead, truth = make_long_data(wd)
@@ -1055,18 +1188,38 @@ def main():
             shapes, walls[f"paired{int(local)}"] = run_paired(idx, pdata, wd,
                                                               local)
             count(tag, "paired --local" if local else "paired", shapes)
+            if not local:
+                base["paired"] = (os.path.join(wd, "gpu_pairs0.sam"), shapes)
+        shapes10, walls10 = run_overlap(smi, idx, sets["e2e"][0], pdata[0],
+                                        wd, base)
+        for path in ("e2e -p 2", "paired -p 2", "e2e stream"):
+            count("K1", path, shapes10[path])
         if want_profile:
-            for mode in ("e2e", "local"):
-                profile_run(idx, sets[mode][0], os.path.join(wd, "prof.sam"),
-                            mode == "local", walls[mode])
-            profile_run(lidx, lfq, os.path.join(wd, "prof.sam"), False,
-                        walls["K1"], ("--overhang",), "long e2e")
-            profile_run(lidx, lfq, os.path.join(wd, "prof.sam"), True,
-                        walls["K2"], (), "long local")
-            for local in (False, True):
-                profile_run(idx, pdata[0], os.path.join(wd, "prof.sam"),
-                            local, walls[f"paired{int(local)}"], (),
-                            "paired local" if local else "paired")
+            prof_sam = os.path.join(wd, "prof.sam")
+            trace = os.path.join(wd, "trace.json")
+            runs = [
+                *((lambda m=mode: align(idx, sets[m][0], prof_sam, "cuda",
+                                        m == "local"), walls[mode], mode)
+                  for mode in ("e2e", "local")),
+                (lambda: align(lidx, lfq, prof_sam, "cuda", False,
+                               ("--overhang",)), walls["K1"], "long e2e"),
+                (lambda: align(lidx, lfq, prof_sam, "cuda", True),
+                 walls["K2"], "long local"),
+                *((lambda lc=local: align(idx, pdata[0], prof_sam, "cuda",
+                                          lc),
+                   walls[f"paired{int(local)}"],
+                   "paired local" if local else "paired")
+                  for local in (False, True)),
+                (lambda: align(idx, sets["e2e"][0], prof_sam, "cuda", False,
+                               ("-p", "2")), walls10["e2e -p 2"], "e2e -p 2"),
+                (lambda: align(idx, pdata[0], prof_sam, "cuda", False,
+                               ("-p", "2")), walls10["paired -p 2"],
+                 "paired -p 2"),
+                (lambda: stream_align(idx, sets["e2e"][0], prof_sam),
+                 walls10["e2e stream"], "e2e stream"),
+            ]
+            for run, untraced, tag in runs:
+                profile_run(run, untraced, tag, trace)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
 

@@ -9,7 +9,7 @@
         [--dpad N] [--gbar N] [-I N] [-X N] [--fr | --rf | --ff]
         [--no-mixed] [--no-discordant] [--dovetail] [--no-contain]
         [--no-overlap] [--un-conc P] [--al-conc P] [--un-mates P]
-        [--device cuda] [--seed N] [-p 1] [--batch N] [-t]
+        [--device cuda] [--seed N] [-p N] [--batch N] [-t]
 
 The same commands and defaults as omp_bowtie2_prime_tpu.cli for unpaired
 and paired reads, end to end or (``--local``) with soft clipping; the
@@ -23,21 +23,25 @@ Pairs (``-1/-2``, ``--interleaved``, ``--tab6``; ``--tab5``/``--12``
 mixes 5-field pairs and 3-field single reads line by line) take the
 paired-end policy options and the ``--un-conc``/``--al-conc``/
 ``--un-mates`` dumps (``-gz``/``-bz2`` forms compress); ``--batch``
-counts pairs there. Any other option of the JAX package's CLI is refused
-with the ROADMAP.md item that will bring it. ``--device`` names the
-torch device (default ``cuda``); nothing falls back to another device.
+counts pairs there. Input is parsed on a reader thread and SAM written
+on a writer thread, in input order, while the batches align
+(models/pipeline.py); ``-p 2`` (or more) adds a second aligner over the
+same index, on its own CUDA stream, and a second align worker. Any other
+option of the JAX package's CLI is refused with the ROADMAP.md item that
+will bring it. ``--device`` names the torch device (default ``cuda``);
+nothing falls back to another device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
 
 # options of the JAX package's CLI that the port does not take yet,
 # grouped by the ROADMAP.md port-queue item that brings them
 _LATER = {
-    "host/device overlap and -p 2": ("--threads",),
     "build and inspect": ("--bt2", "--large-index", "--bmax", "--bmaxdivn",
                           "--dcv", "--offrate", "-o", "--sa-rate"),
 }
@@ -114,24 +118,61 @@ def _mate_files(base, force):
     return _wopen(base + ".1", force), _wopen(base + ".2", force)
 
 
-def run_align(args):
-    """Align the reads (-U) or pairs (-1/-2, --interleaved, --tab5,
-    --tab6) against args.index into args.sam; returns the TorchAligner
-    (its timers and metrics hold the run's profile)."""
-    from .io.fastq import (batch_iterator, open_paired_reads, open_reads,
-                           read_interleaved, read_tab5, read_tab6)
-    from .io.sam import SamWriter
-    from .models.aligner import AlignOpts, TorchAligner
-    from .models.paired import PairedAligner
-    from .utils.dna import decode
-    from .utils.metrics import PhaseTimers
-    from .utils.pe import PEPolicy, policy_from_flags
+def align_config(args):
+    """(Scoring, AlignOpts) of an align command line: a -local preset
+    implies --local; --local alone takes the sensitive-local preset,
+    --score-min G,20,8 and match bonus 2."""
+    from .models.aligner import AlignOpts
     from .utils.presets import DEFAULT_PRESET, PRESETS, PRESETS_LOCAL
     from .utils.scoring import Scoring, SimpleFunc
 
-    if args.threads != 1:
-        raise SystemExit("error: -p 2 is not ported yet (ROADMAP.md, port "
-                         "queue: host/device overlap and -p 2)")
+    local = args.local or args.preset_local is not None
+    sc_kwargs = {}
+    if local:
+        preset = PRESETS_LOCAL[args.preset_local or "sensitive-local"]
+        sc_kwargs["score_min"] = SimpleFunc.parse("G,20,8")
+    else:
+        preset = PRESETS[DEFAULT_PRESET]
+    sc_kwargs["gap_barrier"] = args.gbar
+    if args.ma is not None:
+        sc_kwargs["match_bonus"] = args.ma
+    elif local:
+        sc_kwargs["match_bonus"] = 2
+    opts = AlignOpts(seed_len=preset.seed_len, ival=preset.ival,
+                     nrounds=preset.nrounds, dps=preset.dps,
+                     rng_seed=args.seed, local=local,
+                     maxhalf=args.dpad, overhang=args.overhang)
+    return Scoring(**sc_kwargs), opts
+
+
+def write_unpaired(w, batch, results) -> None:
+    """The records of a batch of single reads, in order."""
+    for rd, res in zip(batch, results):
+        if res.status == "aligned":
+            w.write_aligned(
+                rd, res.fw, w.refnames[res.refid], res.refoff,
+                res.mapq, w.cigar_str(res), res.score, res.secbest,
+                res.stats, nhits_for_summary=res.nhits,
+            )
+        else:
+            w.write_unaligned(rd, yf=res.filt)
+
+
+def run_align(args):
+    """Align the reads (-U) or pairs (-1/-2, --interleaved, --tab5,
+    --tab6) against args.index into args.sam; returns the TorchAligner
+    (its timers and metrics hold the run's profile; with -p 2 the second
+    aligner's are its ``peers[0]``'s)."""
+    from .io.fastq import (batch_iterator, open_paired_reads, open_reads,
+                           read_interleaved, read_tab5, read_tab6)
+    from .io.sam import SamWriter
+    from .models.aligner import TorchAligner
+    from .models.paired import PairedAligner
+    from .models.pipeline import run_pipeline
+    from .utils.dna import decode
+    from .utils.metrics import PhaseTimers
+    from .utils.pe import PEPolicy, policy_from_flags
+
     paired_src = mixed_src = None
     if args.m1 and args.m2:
         paired_src = open_paired_reads(args.m1, args.m2)
@@ -150,26 +191,16 @@ def run_align(args):
     timers = PhaseTimers()
     with timers.phase("loadIndex"):
         fm = _load_index(args.index)
-        # a -local preset implies --local; --local alone takes the
-        # sensitive-local preset, --score-min G,20,8 and match bonus 2
-        local = args.local or args.preset_local is not None
-        sc_kwargs = {}
-        if local:
-            preset = PRESETS_LOCAL[args.preset_local or "sensitive-local"]
-            sc_kwargs["score_min"] = SimpleFunc.parse("G,20,8")
-        else:
-            preset = PRESETS[DEFAULT_PRESET]
-        sc_kwargs["gap_barrier"] = args.gbar
-        if args.ma is not None:
-            sc_kwargs["match_bonus"] = args.ma
-        elif local:
-            sc_kwargs["match_bonus"] = 2
-        opts = AlignOpts(seed_len=preset.seed_len, ival=preset.ival,
-                         nrounds=preset.nrounds, dps=preset.dps,
-                         rng_seed=args.seed, local=local,
-                         maxhalf=args.dpad, overhang=args.overhang)
-        aligner = TorchAligner(fm, Scoring(**sc_kwargs), opts,
-                               device=args.device, timers=timers)
+        sc, opts = align_config(args)
+        aligner = TorchAligner(fm, sc, opts, device=args.device,
+                               timers=timers)
+        # -p 2 and more: a second aligner over the same device index, on
+        # its own stream, for a second align worker; more than two
+        # workers would only take more turns on the GIL
+        aligners = [aligner]
+        if args.threads >= 2:
+            aligners.append(TorchAligner(fm, sc, opts, device=args.device,
+                                         share=aligner))
     out = open(args.sam, "w") if args.sam != "-" else sys.stdout
     w = SamWriter(out, fm.refmap.refnames, fm.refmap.reflens,
                   prog_args=" ".join(sys.argv))
@@ -189,16 +220,7 @@ def run_align(args):
     def fq_dump(f, rd):
         f.write(f"@{rd.name}\n{decode(rd.seq)}\n+\n{w.qual_str(rd.qual)}\n")
 
-    def emit_unpaired(batch, results):
-        for rd, res in zip(batch, results):
-            if res.status == "aligned":
-                w.write_aligned(
-                    rd, res.fw, w.refnames[res.refid], res.refoff,
-                    res.mapq, w.cigar_str(res), res.score, res.secbest,
-                    res.stats, nhits_for_summary=res.nhits,
-                )
-            else:
-                w.write_unaligned(rd, yf=res.filt)
+    emit_unpaired = functools.partial(write_unpaired, w)
 
     def emit_pairs(batch, results):
         for (rd1, rd2), pres in zip(batch, results):
@@ -221,25 +243,30 @@ def run_align(args):
                 w.write_pair(rd1, rd2, em1, em2, pres.cat, et1, et2,
                              secondary=True)
 
-    def drive(src, align_fn, emit_fn):
-        """Batches of args.batch items (reads, pairs, or both), aligned
-        and written in input order; returns the count of items."""
-        n = 0
-        batches = batch_iterator(src, args.batch)
-        while True:
-            with timers.phase("readInput"):
-                batch = next(batches, None)
-            if batch is None:
-                return n
-            results = align_fn(batch)
-            n += len(batch)
+    def drive(src, align_fns, emit_fn):
+        """Batches of args.batch items (reads, pairs, or both) parsed on
+        the reader thread, aligned by one worker per aligner and written
+        on the writer thread in input order; returns the count of
+        items."""
+        def batches():
+            it = batch_iterator(src, args.batch)
+            while True:
+                with timers.phase("readInput"):
+                    batch = next(it, None)
+                if batch is None:
+                    return
+                yield batch
+
+        def emit(batch, results):
             with timers.phase("writeSam"):
                 emit_fn(batch, results)
 
+        return run_pipeline(batches(), None, emit, align_fns=align_fns)
+
     t0 = time.time()
     if paired_src is None and mixed_src is None:
-        nreads = drive(open_reads(args.reads), aligner.align_batch,
-                       emit_unpaired)
+        nreads = drive(open_reads(args.reads),
+                       [al.align_batch for al in aligners], emit_unpaired)
     else:
         m1fw, m2fw = {"fr": (True, False), "rf": (False, True),
                       "ff": (True, True)}[args.orient]
@@ -248,15 +275,17 @@ def run_align(args):
                       dovetail_ok=args.dovetail,
                       contain_ok=not args.no_contain,
                       olap_ok=not args.no_overlap)
-        pal = PairedAligner(aligner, pe, mixed=not args.no_mixed,
-                            discord=not args.no_discordant)
+        pals = [PairedAligner(al, pe, mixed=not args.no_mixed,
+                              discord=not args.no_discordant)
+                for al in aligners]
         if paired_src is not None:
             # reads/s counts both mates
-            nreads = 2 * drive(paired_src, pal.align_pairs, emit_pairs)
+            nreads = 2 * drive(paired_src, [p.align_pairs for p in pals],
+                               emit_pairs)
         else:
             # --tab5 / --12: a batch's pairs go through the paired policy,
             # its single reads through align_batch; records in line order
-            def align_mixed(batch):
+            def align_mixed(pal, batch):
                 pi = [i for i, x in enumerate(batch) if isinstance(x, tuple)]
                 si = [i for i, x in enumerate(batch)
                       if not isinstance(x, tuple)]
@@ -266,8 +295,8 @@ def run_align(args):
                                                          for i in pi])):
                         out[i] = r
                 if si:
-                    for i, r in zip(si, aligner.align_batch([batch[i]
-                                                             for i in si])):
+                    for i, r in zip(si, pal.al.align_batch([batch[i]
+                                                            for i in si])):
                         out[i] = r
                 return out
 
@@ -278,12 +307,15 @@ def run_align(args):
                     else:
                         emit_unpaired([item], [res])
 
-            nreads = drive(mixed_src, align_mixed, emit_mixed)
+            nreads = drive(mixed_src,
+                           [functools.partial(align_mixed, p) for p in pals],
+                           emit_mixed)
     dt = time.time() - t0
     print(w.summary.render(), file=sys.stderr)
     if args.time:
-        aligner.timers.report()
-        aligner.metrics.report()
+        for al in aligners:
+            al.timers.report()
+            al.metrics.report()
         print(f"Time searching: {dt:.2f}s ({nreads/max(dt, 1e-9):.1f} "
               "reads/s)", file=sys.stderr)
     for pair in (unc_out, alc_out, unm_out):
@@ -295,7 +327,8 @@ def run_align(args):
     return aligner
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The command line's namespace; exits on an option not ported yet."""
     ap = argparse.ArgumentParser(prog="bt2torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("build", help="build FM index from FASTA")
@@ -348,6 +381,11 @@ def main(argv=None):
                    help="torch device to align on (default: cuda)")
     args, unknown = ap.parse_known_args(argv)
     _refuse(unknown)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.cmd == "build":
         return cmd_build(args)
     return run_align(args)

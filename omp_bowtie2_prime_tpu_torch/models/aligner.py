@@ -29,10 +29,21 @@ Rounds: 0, 1, then the half-read rescue round. The results are those of
 ``TPUAligner.align_batch`` read for read. models/paired.py drives the
 same phases for read pairs (``collect_candidates`` per round, then mate
 rescue through ``_run_dp_bt``).
+
+On the card an instance does its device work on a CUDA stream of its own
+and moves data through pinned host buffers: a copy to the device is
+queued without the host waiting for the stream, a copy back is queued
+with an event that the host waits on only when it reads the result. The
+grid round and the DP are each split in a dispatch half and a collect
+half, so that models/pipeline.py can run a second instance (``share=``:
+the same index, uploaded once) beside the first: ``-p 2`` on two
+threads, or ``align_stream``, which queues the next batch's round 0
+while this batch's host phases run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -297,25 +308,96 @@ class TorchAligner:
 
     def __init__(self, fm: FMIndex, scoring: Scoring | None = None,
                  opts: AlignOpts | None = None, *, device,
-                 timers: PhaseTimers | None = None):
+                 timers: PhaseTimers | None = None, share=None):
+        """share: another TorchAligner over the same FMIndex on the same
+        device. This instance reuses its device index and unpacked text
+        (read-only after construction) and uploads nothing: one index
+        serves both align workers of -p 2 and align_stream
+        (models/pipeline.py). ``peers`` lists the instances that share
+        this one's index."""
         self.fm = fm
         self.sc = scoring or Scoring()
         self.opts = opts or AlignOpts()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         fr = fm.refmap.frag_refid
         # an N run inside a reference splits it into fragments: windows
         # across one take the bridge (see _run_bridge)
         self._intra_gaps = bool(len(fr) > 1 and (fr[1:] == fr[:-1]).any())
-        self.idx = GpuIndex.from_host(fm, self.device)
-        self.text = dna.unpack_2bit(fm.ref_words, fm.n)
+        self.peers: list = []
+        if share is not None:
+            if share.fm is not fm:
+                raise ValueError("share= must wrap the same FMIndex")
+            if share.device != self.device:
+                raise ValueError("share= must be on the same device")
+            self.idx, self.text = share.idx, share.text
+            share.peers.append(self)
+        else:
+            self.idx = GpuIndex.from_host(fm, self.device)
+            self.text = dna.unpack_2bit(fm.ref_words, fm.n)
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # the index went up on the stream current at its upload: wait
+            # for it (and for the sharer's stream, which waited for it),
+            # and keep its memory from reuse until this stream's work is
+            # done
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            if share is not None:
+                self.stream.wait_stream(share.stream)
+            for f in dataclasses.fields(self.idx):
+                t = getattr(self.idx, f.name)
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(self.stream)
+        # from this instance's scoring, which a sharer's need not match
         self.mm_tab = self.sc.mm_table()
         self.swp = sw.SWParams.from_scoring(self.sc)
         self.timers = timers if timers is not None else PhaseTimers()
         self.metrics = PipelineMetrics()
         self._dev_mat = None
 
+    def _on_stream(self):
+        """The context of this instance's device work: its own CUDA stream
+        on the card (entered by every public entry point, so that a call
+        made from another instance's stream, as align_stream's callbacks
+        are, allocates and queues on this one); nothing on the CPU."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _to_dev(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the device; on the card staged through pinned
+        memory and queued on the current stream without the host waiting
+        for it (a pageable copy would wait for the stream first)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.stream is None:
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, *ts):
+        """Queue the copies of device tensors to the host: a handle for
+        ``_host``. On the card each goes into a pinned buffer of its own
+        (the caching host allocator does not hand one out again while a
+        copy into it is in flight), with an event recorded after them."""
+        if self.stream is None:
+            return ts, None
+        outs = []
+        for t in ts:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            outs.append(h)
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        return outs, ev
+
+    @staticmethod
+    def _host(handle) -> list:
+        """Wait for ``_to_host``'s copies; their numpy arrays."""
+        outs, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return [t.numpy() for t in outs]
 
     # ---------------- P2: seed instantiation (host path) ----------------
 
@@ -411,13 +493,11 @@ class TorchAligner:
         return self._search_resolve_impl(seeds, lseed)
 
     def _search_resolve_chunk(self, chunk, valid, lsc, expand, sub_ftab):
-        t, b, st, of = seed_search.search_resolve_seeds(
+        return self._host(self._to_host(*seed_search.search_resolve_seeds(
             self.idx, self._to_dev(chunk), self._to_dev(valid),
             self.opts.range_cap, expand, self.opts.rng_seed & 0xFFFFFFFF,
             sub_ftab, lane_seed=self._to_dev(lsc.astype(np.int64)),
-        )
-        return t.cpu().numpy(), b.cpu().numpy(), st.cpu().numpy(), \
-            of.cpu().numpy()
+        )))
 
     def _search_resolve_impl(self, seeds: np.ndarray, lseed: np.ndarray):
         o = self.opts
@@ -489,6 +569,15 @@ class TorchAligner:
         round. Returns (probs [count, 2], hit_nonz, hit_elts, n_seeds),
         "empty" when the round has no seeds, or None when the problem
         table or a compaction buffer overflowed (host path reruns it)."""
+        h = self._grid_dispatch(active, roundi, mgn_all, read_ok)
+        return h if isinstance(h, str) else self._grid_collect(h)
+
+    def _grid_dispatch(self, active, roundi, mgn_all, read_ok):
+        """The dispatch half of ``_grid_run``: queues the round's device
+        work and the copy of its results, and returns a handle for
+        ``_grid_collect`` ("empty" when the round has no seeds).
+        Through dispatch_round0, align_stream queues the next batch's round
+        0 while this batch's host phases run."""
         o = self.opts
         if getattr(self, "_meta_dev", None) is None:
             with self.timers.phase("searchResolve.put"):
@@ -527,14 +616,19 @@ class TorchAligner:
         p_cap = max(P_CAP, 2 * npad)
         with self.timers.phase("searchResolve.dispatch"):
             out = self._grid_device(act, roundi, sub_ftab, K, NC, SB, p_cap)
+            handle = self._to_host(*out)
+        return handle, p_cap, lanes
+
+    def _grid_collect(self, handle):
+        """The collect half of ``_grid_run``: waits for the copy and reads
+        it (None on an overflow)."""
+        h, p_cap, lanes = handle
         with self.timers.phase("searchResolve.wait"):
-            probs, count, hn, he, ov = out
-            if ov or count > p_cap:
-                return None
-            probs = probs[:count].cpu().numpy()
-            hn = hn.cpu().numpy()
-            he = he.cpu().numpy()
-        return probs, hn, he, lanes
+            probs, count, hn, he, ov = self._host(h)
+        count = int(count)
+        if ov or count > p_cap:
+            return None
+        return probs[:count], hn, he, lanes
 
     def _grid_device(self, act, roundi, sub_ftab, K, NC, SB, p_cap):
         o = self.opts
@@ -614,22 +708,26 @@ class TorchAligner:
         on its own read and window only, not on the shape or on what it
         shares a launch with; the list is cut into launches by
         sw_cuda.max_batch, which bounds the kernels' scratch."""
+        return self._collect_dp_bt(self._dispatch_dp_bt(problems, cols, lmax,
+                                                        refs))
+
+    def _dispatch_dp_bt(self, problems, cols: int | None = None,
+                        lmax: int | None = None,
+                        refs: np.ndarray | None = None):
+        """The dispatch half of ``_run_dp_bt``: queues every launch and the
+        copies of its results on this instance's stream; returns the state
+        for ``_collect_dp_bt``."""
         local = self.opts.local
         L = lmax or self.opts.l_max
         W = cols or self.opts.dp_cols
         n = len(problems)
-        best = np.full(n, sw.NEG, np.int64)
-        bestcol = np.zeros(n, np.int32)
-        startcols = np.zeros(n, np.int32)
-        ops_all: list = [None] * n
-        rows = ((np.zeros(n, np.int32), np.zeros(n, np.int32))
-                if local else None)
         rdlens = self._mat_lens[problems.src // 2].astype(np.int32)
         chunk = sw_cuda.max_batch(L, W + 1, local, self.device.type)
         wmat = self._dev_mat.shape[1]
+        futs = []
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            with self.timers.phase("dp.put"):
+            with self.timers.phase("dp.put"), self._on_stream():
                 d_src = self._to_dev(problems.src[lo:hi])
                 d_wl = self._to_dev(problems.wlen[lo:hi].astype(np.int32))
                 d_rl = self._to_dev(rdlens[lo:hi])
@@ -654,15 +752,30 @@ class TorchAligner:
                     b, bc, ops, stc = sw_cuda.sw_e2e_backtrace(
                         reads, pens, d_rl, d_refs, d_wl, self.swp)
                     small = torch.stack([b, bc, stc])
+                # one copy for the [B] results, one for the op strings
+                futs.append((lo, hi, self._to_host(small, ops)))
+        return n, futs
+
+    def _collect_dp_bt(self, state):
+        """The collect half of ``_run_dp_bt``: waits for each launch's
+        copies and unpacks them."""
+        n, futs = state
+        local = self.opts.local
+        best = np.full(n, sw.NEG, np.int64)
+        bestcol = np.zeros(n, np.int32)
+        startcols = np.zeros(n, np.int32)
+        ops_all: list = [None] * n
+        rows = ((np.zeros(n, np.int32), np.zeros(n, np.int32))
+                if local else None)
+        for lo, hi, h in futs:
             with self.timers.phase("dp.wait"):
-                small = small.cpu().numpy()  # one copy for the [B] results
-                best[lo:hi] = small[0]
-                bestcol[lo:hi] = small[1]
-                startcols[lo:hi] = small[2]
-                if local:
-                    rows[0][lo:hi] = small[3]  # trailing clip
-                    rows[1][lo:hi] = small[4]  # leading clip
-                opsp = ops.cpu().numpy()
+                small, opsp = self._host(h)
+            best[lo:hi] = small[0]
+            bestcol[lo:hi] = small[1]
+            startcols[lo:hi] = small[2]
+            if local:
+                rows[0][lo:hi] = small[3]  # trailing clip
+                rows[1][lo:hi] = small[4]  # leading clip
             with self.timers.phase("dp.unpack"):
                 ops_all[lo:hi] = self._ops_rows(opsp)
         return best, bestcol, ops_all, startcols, rows
@@ -689,22 +802,59 @@ class TorchAligner:
 
     # ---------------- main entry ----------------
 
-    def align_batch(self, reads) -> list[AlnResult]:
+    def align_batch(self, reads, *, _prebuilt=False, _predisp=None,
+                    _minscs=None, _next_cb=None) -> list[AlnResult]:
         """Rounds 0 and 1 (reads still unaligned after a round re-seed
         at the next offsets, gated by --seed-boost), then the half-read
-        rescue round for reads still unaligned."""
+        rescue round for reads still unaligned.
+
+        _prebuilt / _predisp / _minscs: align_stream has built this
+        batch's matrices and queued its round 0 (dispatch_round0).
+        _next_cb = (build, dispatch): the next batch's, each called
+        exactly once: the build right after round 0's main DP is queued
+        (host work while it runs), the dispatch after the wide escalation
+        is queued, so that the next batch's round 0 runs on the device
+        under this batch's host tail; both at once after round 0 when it
+        queued no DP."""
+        with self._on_stream():
+            return self._align_batch(reads, _prebuilt, _predisp, _minscs,
+                                     _next_cb)
+
+    def _align_batch(self, reads, prebuilt, predisp, minscs, next_cb):
         n = len(reads)
         self.metrics.add(reads=n)
-        with self.timers.phase("buildMatrices"):
-            self.build_read_matrices(reads)
+        if not prebuilt:
+            with self.timers.phase("buildMatrices"):
+                self.build_read_matrices(reads)
         results: list = [None] * n
-        minscs = self.min_scores(reads)
+        if minscs is None:
+            minscs = self.min_scores(reads)
+        fired = [False, False]
+
+        def once(i):
+            def fire():
+                if not fired[i]:
+                    fired[i] = True
+                    next_cb[i]()
+            return fire
+
+        after_dp = (once(0), once(1)) if next_cb is not None else None
+
+        def fire_both():
+            if after_dp is not None:
+                after_dp[0]()
+                after_dp[1]()
+
         active = list(range(n))
         for roundi in range(self.opts.nrounds):
             if not active:
                 break
-            cands, table = self.collect_candidates(reads, minscs, active,
-                                                   roundi, columnar=True)
+            cands, table = self.collect_candidates(
+                reads, minscs, active, roundi,
+                predisp=predisp if roundi == 0 else None,
+                after_dp=after_dp if roundi == 0 else None, columnar=True)
+            if roundi == 0:
+                fire_both()  # round 0 queued no DP
             self.metrics.add(candidates=sum(len(c) for c in cands)
                              + (len(table) if table is not None else 0))
             with self.timers.phase("finishRead"):
@@ -728,6 +878,7 @@ class TorchAligner:
             with self.timers.phase("finishRead"):
                 self._finalize_unpaired(reads, minscs, cands, results,
                                         table=table)
+        fire_both()  # no round ran (no reads)
         for i in range(n):
             if results[i] is None:
                 results[i] = AlnResult(status="unaligned")
@@ -781,8 +932,9 @@ class TorchAligner:
         self._fc_cache = None
         self._batch_reads = reads
         pk_fw = mat_r[0::2].astype(np.int64) | (mat_p[0::2].astype(np.int64) << 4)
-        self._dev_mat = expand_oriented_mat(
-            self._to_dev(pk_fw), self._to_dev(clipped))
+        with self._on_stream():
+            self._dev_mat = expand_oriented_mat(
+                self._to_dev(pk_fw), self._to_dev(clipped))
 
     def min_scores(self, reads) -> np.ndarray:
         """Per-read minimum scores (bt2_search.cpp:2476-2491), clamped
@@ -826,22 +978,39 @@ class TorchAligner:
         self._fc_cache = (minscs, out)
         return out
 
+    def dispatch_round0(self, reads, minscs):
+        """align_stream's pre-dispatch: queue round 0 of the batch whose
+        matrices are built (seed grid, search, resolve, rank/frame) on
+        this instance's stream, and return the handle that
+        ``align_batch(_predisp=...)`` collects ("empty" when the round has
+        no seeds)."""
+        _, mgn_all, _, _, read_ok = self._frame_consts(minscs)
+        with self._on_stream(), self.timers.phase("searchResolve"):
+            return self._grid_dispatch(list(range(len(reads))), 0, mgn_all,
+                                       read_ok)
+
     def collect_candidates(self, reads, minscs, active, roundi,
-                           columnar=False):
+                           predisp=None, after_dp=None, columnar=False):
         """Phases P2-P7 for one seeding round of the batch whose matrices
         are built. Returns per-read dicts {(fw, endj): Candidate} ((fw,
         diagonal) in local mode), bridge candidates last; with
         ``columnar`` (cands, table): the dicts of the reads with several
-        candidates and a CandTable of the reads with exactly one."""
+        candidates and a CandTable of the reads with exactly one.
+        predisp: dispatch_round0's handle for this round; after_dp: the
+        (build, dispatch) callbacks of align_batch's ``_next_cb``, called
+        once the main DP and the wide escalation are queued."""
         if self.opts.nofw or self.opts.norc:
             raise NotImplementedError(
                 "--nofw/--norc seeding is not ported yet (ROADMAP.md, port "
                 "queue: the rest of the align option surface)")
-        cands, table = self._collect_round(len(reads), minscs, active,
-                                           roundi, columnar)
+        with self._on_stream():
+            cands, table = self._collect_round(len(reads), minscs, active,
+                                               roundi, columnar, predisp,
+                                               after_dp)
         return (cands, table) if columnar else cands
 
-    def _collect_round(self, n, minscs, active, roundi, columnar):
+    def _collect_round(self, n, minscs, active, roundi, columnar, predisp,
+                       after_dp):
         o = self.opts
         empty = ([{} for _ in range(n)], None)
         self._hit_nonz = np.zeros(n, np.int64)
@@ -850,7 +1019,11 @@ class TorchAligner:
             self._frame_consts(minscs)
 
         with self.timers.phase("searchResolve"):
-            out = self._grid_run(active, roundi, mgn_all, read_ok)
+            if predisp is None:
+                out = self._grid_run(active, roundi, mgn_all, read_ok)
+            else:
+                out = (predisp if isinstance(predisp, str)
+                       else self._grid_collect(predisp))
         if isinstance(out, str):
             return empty
         if out is not None:
@@ -868,7 +1041,7 @@ class TorchAligner:
                 return empty
             return self._extend_and_collect(
                 minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all,
-                columnar)
+                columnar, after_dp)
 
         # the device table overflowed (repeat-heavy batch): host path
         if not getattr(self, "_warned_mega_overflow", False):
@@ -961,13 +1134,16 @@ class TorchAligner:
             return empty
         return self._extend_and_collect(
             minscs, n, problems, lens_all, mgn_all, mgw_all, thr_all,
-            columnar)
+            columnar, after_dp)
 
     def _extend_and_collect(self, minscs, n, problems, lens_all, mgn_all,
-                            mgw_all, thr_all, columnar):
+                            mgw_all, thr_all, columnar, after_dp=None):
         """P7 + P8a: batched DP, wide escalation, -D streak, candidate
         collection. Returns (cands, CandTable | None); the table (reads
-        with one candidate) only with ``columnar``."""
+        with one candidate) only with ``columnar``. after_dp (see
+        collect_candidates): the build is called once the main DP is
+        queued, the dispatch once the wide escalation is (without one,
+        align_batch calls it once the round is collected)."""
         o = self.opts
         # windows across an N run inside a reference (and, with
         # --overhang, off a reference's end) leave the joined text: see
@@ -988,36 +1164,47 @@ class TorchAligner:
                 return cands, None
         lens_p = self._mat_lens[problems.src // 2]
         irr_mask = (problems.wlen > o.dp_cols) | (lens_p > o.l_max)
-        with self.timers.phase("extendDP"):
-            if not irr_mask.any():
-                best, bestcol, ops, startcols, rows = self._run_dp_bt(
-                    problems)
-            else:
-                # the hot shape for the regular problems; the others in
-                # groups of reads whose lengths differ by less than 2x,
-                # each launch as long as its longest read and as wide as
-                # its widest window (on the card the kernel computes only
-                # the rows of a read and the column tiles of a window, so
-                # a shared shape costs scratch, not time; on the CPU the
-                # plain version computes the whole shape, hence the groups)
-                self.metrics.add(dps_irregular=int(irr_mask.sum()))
-                n_all = len(problems)
-                best = np.full(n_all, sw.NEG, np.int64)
-                bestcol = np.zeros(n_all, np.int32)
-                startcols = np.zeros(n_all, np.int32)
-                ops = [None] * n_all
-                rows = ((np.zeros(n_all, np.int32), np.zeros(n_all, np.int32))
-                        if o.local else None)
-                group = np.ceil(np.log2(np.maximum(lens_p, 1))).astype(
-                    np.int64)
-                group[lens_p <= o.l_max] = 0  # short reads, wide windows
-                group[~irr_mask] = -1  # the hot shape
+        if not irr_mask.any():
+            with self.timers.phase("extendDP"):
+                st_main = self._dispatch_dp_bt(problems)
+            if after_dp is not None:
+                after_dp[0]()  # the next batch's build, under this DP
+            with self.timers.phase("extendDP"):
+                best, bestcol, ops, startcols, rows = self._collect_dp_bt(
+                    st_main)
+        else:
+            # the hot shape for the regular problems; the others in
+            # groups of reads whose lengths differ by less than 2x, each
+            # launch as long as its longest read and as wide as its
+            # widest window (on the card the kernel computes only the
+            # rows of a read and the column tiles of a window, so a
+            # shared shape costs scratch, not time; on the CPU the plain
+            # version computes the whole shape, hence the groups)
+            self.metrics.add(dps_irregular=int(irr_mask.sum()))
+            n_all = len(problems)
+            best = np.full(n_all, sw.NEG, np.int64)
+            bestcol = np.zeros(n_all, np.int32)
+            startcols = np.zeros(n_all, np.int32)
+            ops = [None] * n_all
+            rows = ((np.zeros(n_all, np.int32), np.zeros(n_all, np.int32))
+                    if o.local else None)
+            group = np.ceil(np.log2(np.maximum(lens_p, 1))).astype(np.int64)
+            group[lens_p <= o.l_max] = 0  # short reads, wide windows
+            group[~irr_mask] = -1  # the hot shape
+            states = []
+            with self.timers.phase("extendDP"):
                 for g in np.unique(group).tolist():
                     idxs = np.flatnonzero(group == g)
                     cols, lm = self._launch_shape(
                         problems.wlen[idxs], lens_p[idxs])
-                    b, bc, op, stc, rws = self._run_dp_bt(
-                        problems.take(idxs), cols=cols, lmax=lm)
+                    states.append((idxs, self._dispatch_dp_bt(
+                        problems.take(idxs), cols=cols, lmax=lm)))
+            if after_dp is not None:
+                after_dp[0]()
+                after_dp[1]()
+            with self.timers.phase("extendDP"):
+                for idxs, st in states:
+                    b, bc, op, stc, rws = self._collect_dp_bt(st)
                     best[idxs] = b
                     bestcol[idxs] = bc
                     startcols[idxs] = stc
@@ -1055,8 +1242,12 @@ class TorchAligner:
                               * wide_probs.wlen).sum()),
             )
             with self.timers.phase("extendDPWide"):
-                b, bc, op, stc, rws = self._run_dp_bt(
-                    wide_probs, cols=wcols, lmax=wlmax)
+                st_w = self._dispatch_dp_bt(wide_probs, cols=wcols,
+                                            lmax=wlmax)
+            if after_dp is not None:
+                after_dp[1]()  # the next batch's round 0 after it
+            with self.timers.phase("extendDPWide"):
+                b, bc, op, stc, rws = self._collect_dp_bt(st_w)
             problems.wstart[esc] = ws
             problems.wlen[esc] = wide_probs.wlen
             best[esc] = b

@@ -28,6 +28,7 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 FINISH_CALLS = 0  # batches finished by the native library
+_calls_lock = threading.Lock()  # align workers finish batches at once
 
 
 def _build() -> str | None:
@@ -97,7 +98,8 @@ def finish_batch(ops_mat, start_cols, wstarts, reads_mat, srcs, text,
     lib = get_lib()
     if lib is None:
         return None
-    FINISH_CALLS += 1
+    with _calls_lock:
+        FINISH_CALLS += 1
     ops_mat = np.ascontiguousarray(ops_mat, np.uint8)
     start_cols = np.ascontiguousarray(start_cols, np.int32)
     wstarts = np.ascontiguousarray(wstarts, np.int64)

@@ -63,7 +63,8 @@ def rank_frame(tops, bots, starts, offs, m_ri, m_fw, m_off, lens, mgn,
     """tops/bots/starts [NC, SB], offs [NC, int(SB*expand)] (-1 =
     unresolved), per-seed m_ri/m_fw/m_off [S], per-read lens/mgn/read_ok
     [n_reads]. Returns (problems [p_cap, 2] (src, diag), count,
-    hit_nonz [n_reads], hit_elts [n_reads], overflow)."""
+    hit_nonz [n_reads], hit_elts [n_reads], overflow), count and overflow
+    as 0-d tensors: nothing here waits for the device."""
     NC, SB = tops.shape
     S = NC * SB
     spc = int(SB * expand)
@@ -96,7 +97,7 @@ def rank_frame(tops, bots, starts, offs, m_ri, m_fw, m_off, lens, mgn,
     valid_s = ri_s < BIG
     take = w_s.clamp(max=range_cap)
     spill = gstart[sid] + take > gend[sid]
-    overflow = bool((spill & valid_s).any())
+    overflow = (spill & valid_s).any()
     take = torch.where(valid_s & ~spill, take, torch.zeros_like(take))
 
     # element-stream cap per read (maxIters)
@@ -159,7 +160,7 @@ def rank_frame(tops, bots, starts, offs, m_ri, m_fw, m_off, lens, mgn,
 
     # ---- 5. compact kept problems into the fixed table ----
     out_pos = torch.cumsum(keep.to(i64), 0) - 1
-    count = int(keep.sum())
+    count = keep.sum()
     srcs = 2 * ri_e + (~fw_e).to(i64)
     tgt = torch.where(keep & (out_pos < p_cap), out_pos,
                       torch.full_like(out_pos, p_cap))

@@ -8,9 +8,10 @@ start col). ``sw_local_backtrace`` returns what its
 ops, start col, start row). On CUDA tensors each launches its kernel on
 the current stream (or raises); on CPU tensors it runs the plain version
 in ops/sw.py. ``LAUNCHES`` counts the launches of the end-to-end kernel,
-``LAUNCHES_LOCAL`` those of the local one, and ``SHAPES`` the same launches
+``LAUNCHES_LOCAL`` those of the local one, ``SHAPES`` the same launches
 by (local, L, C), which tells the narrow body's from the wide body's
-(``is_narrow``).
+(``is_narrow``), and ``STREAMS`` by the CUDA stream they went to. The
+counts are kept under a lock: two align workers launch at once.
 
 The kernels take every shape the aligner frames: reads of up to
 ``L_MAX`` = 1024 rows and DPs of up to ``C_MAX`` = 4097 columns (window
@@ -36,6 +37,7 @@ problem lists into chunks of that size.
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
@@ -44,6 +46,8 @@ from . import sw
 LAUNCHES = 0
 LAUNCHES_LOCAL = 0
 SHAPES: collections.Counter = collections.Counter()  # (local, L, C) -> launches
+STREAMS: collections.Counter = collections.Counter()  # cudaStream_t -> launches
+_count_lock = threading.Lock()
 L_MAX = 1024  # longest read the kernels take (the aligner's l_hard)
 C_MAX = 4097  # widest DP (window + column 0) the kernels take
 L_NARROW = 160  # the narrow body: L <= 160 and C <= 288
@@ -139,8 +143,9 @@ def max_batch(L: int, C: int, local: bool, device_type: str) -> int:
 
 def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
     """Allocate outputs and scratch and launch the library's ``name`` on
-    the current stream: (out int32 [5 if local else 3, B], ops uint8
-    [B, ceil((L+W+1)/4)], whether a kernel was launched)."""
+    the current stream, counting the launch: (out int32 [5 if local else
+    3, B], ops uint8 [B, ceil((L+W+1)/4)])."""
+    global LAUNCHES, LAUNCHES_LOCAL
     from ._build import get_lib
 
     dev = reads.device
@@ -150,7 +155,7 @@ def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
     out = torch.empty((5 if local else 3, B), dtype=torch.int32, device=dev)
     ops = torch.empty((B, nops), dtype=torch.uint8, device=dev)
     if B == 0:
-        return out, ops, False
+        return out, ops
     nbytes = trace_bytes(B, L, W + 1, local)
     trace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     fn = getattr(get_lib(), name)
@@ -162,10 +167,16 @@ def _launch(name, local, reads, pens, rdlens, refs, wlens, pen_args):
                  nbytes, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
-    SHAPES[(local, L, W + 1)] += 1
+    with _count_lock:
+        if local:
+            LAUNCHES_LOCAL += 1
+        else:
+            LAUNCHES += 1
+        SHAPES[(local, L, W + 1)] += 1
+        STREAMS[stream] += 1
     # the caching allocator hands the scratch to later work of this stream
     # only, so freeing it here, before the kernel has run, is safe
-    return out, ops, True
+    return out, ops
 
 
 def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
@@ -173,14 +184,12 @@ def sw_e2e_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
     [B, W], wlens int32 [B] -> (best int32 [B], bestcol int32 [B], ops
     uint8 [B, ceil((L+W+1)/4)], start_col int32 [B]). On the card the
     three int32 results are rows of one [3, B] tensor."""
-    global LAUNCHES
     dev = _check_problem(reads, pens, rdlens, refs, wlens)
     if dev.type == "cpu":
         return sw.sw_e2e_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
-    out, ops, launched = _launch(
+    out, ops = _launch(
         "sw_e2e_backtrace_launch", False, reads, pens, rdlens, refs, wlens,
         (p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar))
-    LAUNCHES += launched
     return out[0], out[1], ops, out[2]
 
 
@@ -188,12 +197,10 @@ def sw_local_backtrace(reads, pens, rdlens, refs, wlens, p: sw.SWParams):
     """Inputs as sw_e2e_backtrace -> (best, bestrow, bestcol int32 [B],
     ops uint8 [B, ceil((L+W+1)/4)], start_col, start_row int32 [B]). On
     the card the five int32 results are rows of one [5, B] tensor."""
-    global LAUNCHES_LOCAL
     dev = _check_problem(reads, pens, rdlens, refs, wlens)
     if dev.type == "cpu":
         return sw.sw_local_backtrace_plain(reads, pens, rdlens, refs, wlens, p)
-    out, ops, launched = _launch(
+    out, ops = _launch(
         "sw_local_backtrace_launch", True, reads, pens, rdlens, refs, wlens,
         (p.rdg_open, p.rdg_ext, p.rfg_open, p.rfg_ext, p.npen, p.gbar, p.ma))
-    LAUNCHES_LOCAL += launched
     return out[0], out[1], out[2], ops, out[3], out[4]

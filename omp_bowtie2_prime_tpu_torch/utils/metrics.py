@@ -10,17 +10,21 @@ pipeline stages; counters aggregate per align_batch call.
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 
 
 class PhaseTimers:
-    """Accumulates wall seconds per named phase (MyTimer analog)."""
+    """Accumulates wall seconds per named phase (MyTimer analog). Safe to
+    share between threads (the pipeline's reader, align workers and
+    writer time their phases into one instance)."""
 
     def __init__(self):
         self.acc = defaultdict(float)
         self.calls = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextmanager
     def phase(self, name: str):
@@ -28,18 +32,22 @@ class PhaseTimers:
         try:
             yield
         finally:
-            self.acc[name] += time.perf_counter() - t0
-            self.calls[name] += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.acc[name] += dt
+                self.calls[name] += 1
 
     def reset(self):
-        self.acc.clear()
-        self.calls.clear()
+        with self._lock:
+            self.acc.clear()
+            self.calls.clear()
 
     def render(self) -> str:
-        lines = []
-        for name, secs in sorted(self.acc.items(), key=lambda kv: -kv[1]):
-            lines.append(f"Timer: {name} {secs:.3f}s ({self.calls[name]}x)")
-        return "\n".join(lines)
+        with self._lock:
+            rows = sorted(self.acc.items(), key=lambda kv: -kv[1])
+            calls = dict(self.calls)
+        return "\n".join(f"Timer: {name} {secs:.3f}s ({calls[name]}x)"
+                         for name, secs in rows)
 
     def report(self, out=sys.stderr):
         if self.acc:
@@ -56,8 +64,6 @@ class PeriodicMetrics:
 
     def __init__(self, sources, interval: float, path: str | None = None,
                  stderr: bool = False):
-        import threading
-
         self.sources = sources  # list of PipelineMetrics
         self.interval = max(0.25, float(interval))
         self.f = open(path, "w") if path else None

@@ -1,9 +1,11 @@
 """The hand-written Hopper DP kernels (end-to-end and local) against their
 plain PyTorch versions, on the card, at the narrow shapes (a row in the
 warp's registers) and the wide ones (column tiles, a warp each: L up to
-1024, C past 288), and a paired align on the card against the same align
-on the CPU. The kernels have no CPU mode: these tests skip without a CUDA
-device. The file imports no JAX, so it runs where JAX is absent:
+1024, C past 288), a paired align on the card against the same align on
+the CPU, and two aligners on two CUDA streams (-p 2, align_stream, many
+small batches through two workers) against one. The kernels have no CPU
+mode: these tests skip without a CUDA device. The file imports no JAX, so
+it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -522,3 +524,154 @@ def test_paired_align_on_the_card_equals_cpu(cuda, local):
         assert sum(p.cat == "concord" for p in res[1::4]) >= 11
     assert sams["cuda"] == sams["cpu"]
     assert "YT:Z:DP" in sams["cpu"] and "YT:Z:UP" in sams["cpu"]
+
+
+def _fields(r):
+    """Every field of one alignment result, the lazy ones read out."""
+    st = r.stats
+    stats = tuple(st.get(k) for k in ("nm", "xm", "xo", "xg", "xn",
+                                      "ref_span", "md")) if st else ()
+    return (r.status, r.fw, r.refid, r.refoff, r.score, r.secbest, r.mapq,
+            r.cigar, r.nhits, r.span, r.filt, stats,
+            tuple(_fields(x) for x in r.extra))
+
+
+def _single_reads(fm, n, seed):
+    """n reads of 100 or 150 bp from _paired_setup's genome, with 0-3
+    substitutions, a third of them reverse-complemented."""
+    from omp_bowtie2_prime_tpu_torch.io.fastq import Read
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    rng = np.random.default_rng(seed)
+    text = dna.unpack_2bit(fm.ref_words, fm.n)
+    out = []
+    for i in range(n):
+        ln = (100, 150)[i % 2]
+        p = int(rng.integers(0, len(text) - ln))
+        s = text[p : p + ln].copy()
+        for m in rng.integers(0, ln, int(rng.integers(0, 4))):
+            s[m] = (s[m] + 1) % 4
+        if i % 3 == 1:
+            s = dna.revcomp(s)
+        out.append(Read(i, f"u{i}", s,
+                        rng.integers(2, 41, ln).astype(np.uint8)))
+    return out
+
+
+def _write_fastq(path, reads):
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    with open(path, "w") as f:
+        for rd in reads:
+            q = (rd.qual + 33).astype(np.uint8).tobytes().decode()
+            f.write(f"@{rd.name}\n{dna.decode(rd.seq)}\n+\n{q}\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True], ids=["unpaired", "pairs"])
+def test_p2_on_the_card_equals_p1_and_cpu(cuda, tmp_path, paired):
+    """The CLI at -p 2 on the card writes the SAM of -p 1 on the card and
+    of the CPU run, byte for byte; both workers aligned batches and the
+    kernels ran on both aligners' streams."""
+    from omp_bowtie2_prime_tpu_torch import cli
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    fm, pairs = _paired_setup()
+    text = dna.unpack_2bit(fm.ref_words, fm.n)
+    with open(tmp_path / "g.fa", "w") as f:
+        f.write(">chrP\n" + dna.decode(text) + "\n")
+    idx = str(tmp_path / "g.npz")
+    cli.main(["build", str(tmp_path / "g.fa"), idx])
+    if paired:
+        _write_fastq(tmp_path / "m1.fq", [a for a, _b in pairs])
+        _write_fastq(tmp_path / "m2.fq", [b for _a, b in pairs])
+        inputs = ["-1", str(tmp_path / "m1.fq"), "-2", str(tmp_path / "m2.fq"),
+                  "--batch", "8"]
+    else:
+        _write_fastq(tmp_path / "r.fq", _single_reads(fm, 300, 7))
+        inputs = ["-U", str(tmp_path / "r.fq"), "--batch", "50"]
+    sams = {}
+    for dev, threads in (("cpu", 1), ("cuda", 1), ("cuda", 2)):
+        sam = tmp_path / f"{dev}{threads}.sam"
+        sw_cuda.STREAMS.clear()
+        al = cli.main(["align", "-x", idx, *inputs, "-S", str(sam),
+                       "--device", dev, "-p", str(threads)])
+        torch.cuda.synchronize()
+        with open(sam) as f:
+            sams[dev, threads] = [ln for ln in f.read().splitlines()
+                                  if not ln.startswith("@PG")]
+        if threads == 2:
+            streams = {a.stream.cuda_stream for a in (al, *al.peers)}
+            assert al.metrics.reads > 0 and al.peers[0].metrics.reads > 0
+            assert set(sw_cuda.STREAMS) == streams
+    assert sams["cuda", 2] == sams["cuda", 1] == sams["cpu", 1]
+    assert sum(not ln.startswith("@") for ln in sams["cpu", 1]) >= 96
+
+
+@pytest.mark.cuda
+def test_streams_are_distinct_and_not_the_default(cuda):
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+
+    fm, _pairs = _paired_setup()
+    a1 = TorchAligner(fm, device="cuda")
+    a2 = TorchAligner(fm, device="cuda", share=a1)
+    default = torch.cuda.default_stream(a1.device)
+    assert a1.stream is not None and a2.stream is not None
+    assert a1.stream != a2.stream
+    assert default not in (a1.stream, a2.stream)
+    assert a1.stream.cuda_stream != 0 and a2.stream.cuda_stream != 0
+    assert a2.idx.blocks.data_ptr() == a1.idx.blocks.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
+def test_align_stream_on_the_card_equals_serial(cuda, local):
+    """align_stream over two instances (the next batch's round 0 queued
+    on the other stream from inside this batch's align) gives serial
+    align_batch's results, every field."""
+    from omp_bowtie2_prime_tpu_torch.models.aligner import (
+        AlignOpts, TorchAligner)
+    from omp_bowtie2_prime_tpu_torch.models.pipeline import align_stream
+    from omp_bowtie2_prime_tpu_torch.utils.scoring import (
+        Scoring, SimpleFunc)
+
+    fm, _pairs = _paired_setup()
+    sc = (Scoring(match_bonus=2, score_min=SimpleFunc.parse("G,20,8"))
+          if local else Scoring())
+    reads = _single_reads(fm, 1200, 8)
+    batches = [reads[i : i + 128] for i in range(0, len(reads), 128)]
+    serial = [TorchAligner(fm, sc, AlignOpts(local=local),
+                           device="cuda").align_batch(b) for b in batches]
+    a1 = TorchAligner(fm, sc, AlignOpts(local=local), device="cuda")
+    a2 = TorchAligner(fm, sc, AlignOpts(local=local), device="cuda",
+                      share=a1)
+    sw_cuda.STREAMS.clear()
+    streamed = align_stream([a1, a2], batches)
+    assert set(sw_cuda.STREAMS) == {a1.stream.cuda_stream,
+                                    a2.stream.cuda_stream}
+    for sb, tb in zip(serial, streamed):
+        assert [_fields(r) for r in sb] == [_fields(r) for r in tb]
+    assert sum(r.status == "aligned" for b in serial for r in b) >= 1100
+
+
+@pytest.mark.cuda
+def test_two_workers_many_small_batches(cuda):
+    """40 batches of 256 reads through two workers, where the two streams
+    overlap most: every record equals serial align_batch's, in order."""
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.pipeline import run_pipeline
+
+    fm, _pairs = _paired_setup()
+    reads = _single_reads(fm, 40 * 256, 9)
+    batches = [reads[i : i + 256] for i in range(0, len(reads), 256)]
+    al = TorchAligner(fm, device="cuda")
+    serial = [r for b in batches for r in al.align_batch(b)]
+    a1 = TorchAligner(fm, device="cuda", share=al)
+    a2 = TorchAligner(fm, device="cuda", share=al)
+    got = []
+    n = run_pipeline(iter(batches), None, lambda b, r: got.extend(r),
+                     align_fns=[a1.align_batch, a2.align_batch])
+    assert n == len(reads) == len(got)
+    assert a1.metrics.reads > 0 and a2.metrics.reads > 0
+    for i, (a, b) in enumerate(zip(serial, got)):
+        assert _fields(a) == _fields(b), i

@@ -166,7 +166,7 @@ def test_align_sam_byte_identical(genome, seed):
 def test_port_cli_refuses_unported_options(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
     for extra, item in ((["--align-paired-reads"], "align option surface"),
-                        (["-p", "2"], "host/device overlap"),
+                        (["--large-index"], "build and inspect"),
                         (["-k", "3"], "align option surface")):
         r = subprocess.run(
             [sys.executable, "-m", "omp_bowtie2_prime_tpu_torch.cli", "align",
