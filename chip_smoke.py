@@ -60,7 +60,20 @@ Phases, one line each, stamped with the seconds since the start:
      phase 5's or 8's, its K1 launches and launches by (L, C) equal to
      theirs, the ``-p 2`` and stream runs' launches on the two aligners'
      streams (two, neither the default stream); reads/s as median and
-     range with the card's name and power limit.
+     range with the card's name and power limit;
+ 11. the option surface (``OPTION_LINES``) at phase 5's size: (a)
+     --very-sensitive with -L 10 below the index's ftab width, a seed at
+     every offset (a grid of several chunks; the script counts its lanes)
+     and other penalties, MAPQ V3 and --tighten 1; (b) -k 5 --norc
+     --no-unal with --un/--al, read groups and --xeq; (c) phase 6's reads
+     with --very-sensitive-local, --ma 3, --mp 5,1, --ignore-quals, -a and
+     --nofw (K2); (d) phase 5's reads as FASTQ, FASTA (-f) and BAM (-b),
+     trimmed (-s -u -5 -3), whose SAM must agree; (e) phase 8's pairs with
+     --very-fast, -I/-X, --no-mixed, --nofw and --un-conc at -p 1 and -p 2.
+     Each line's head against the port's CPU run, the checks its options
+     imply, reads/s and the phase timers; lines (a) and (c) hold their
+     kernel against its plain version, with their penalties, at every
+     (L, C) they launched.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -313,12 +326,14 @@ def where_they_differ(args, got, want, got2, want2):
                                f"{same[0]}, a second plain run: {same[1]}")
 
 
-def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3):
+def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3,
+              params=None):
     """One kernel on one set of problems: held against its plain version
     bit for bit (unless compare is False), timed, and set beside its
-    bound. Returns the case's row of the kernels line."""
+    bound. ``params`` (sw.SWParams) replaces the kernel's default
+    penalties. Returns the case's row of the kernels line."""
     k = KERNELS[tag]
-    p, wrapper, plain = k["params"], k["wrapper"], k["plain"]
+    p, wrapper, plain = params or k["params"], k["wrapper"], k["plain"]
     args = (tie_problems(rng, B, L, W) if kw is None
             else dp_problems(rng, B, L, W, **kw))
     plain_ms = err = None
@@ -1104,6 +1119,266 @@ def run_paired(idx, data, wd, local):
     return shapes, wall
 
 
+# Phase 11's option lines: (read set, options). "e2e" and "local" are phase
+# 5's and 6's reads, "input" the e2e reads written again as FASTQ (all
+# qualities 40), FASTA and BAM, "pairs" phase 8's pairs.
+OPTION_LINES = {
+    "a": ("e2e", ["--very-sensitive", "-L", "10", "-i", "C,1,0", "--mp",
+                  "4,2", "--rdg", "6,2", "--rfg", "7,3", "--np", "2",
+                  "--n-ceil", "L,0,0.2", "--score-min", "L,-0.8,-0.8",
+                  "--mapq-v", "3", "--tighten", "1"]),
+    "b": ("e2e", ["-k", "5", "--norc", "--no-unal", "--un", "{out}un.fq",
+                  "--al", "{out}al.fq", "--rg-id", "g1", "--rg", "SM:s1",
+                  "--xeq"]),
+    "c": ("local", ["--very-sensitive-local", "--ma", "3", "--mp", "5,1",
+                    "--ignore-quals", "-a", "--nofw"]),
+    "d": ("input", ["-s", "100", "-u", "20000", "-5", "3", "-3", "5"]),
+    "e": ("pairs", ["--very-fast", "-I", "100", "-X", "600", "--no-mixed",
+                    "--nofw", "--un-conc", "{out}uc.fq"]),
+}
+N_CPU_READS_A = 500  # line (a): its dense seed grid is slow on the CPU
+
+
+def _fastq_records(path):
+    """(name, sequence) of each record of a FASTQ."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)]
+
+
+def fastq_count(path):
+    """The count of records of a FASTQ."""
+    with open(path) as f:
+        return sum(1 for _ in f) // 4
+
+
+def write_input_formats(wd, fq):
+    """Line (d)'s inputs: the reads of ``fq`` as a FASTQ with every
+    quality 40, as FASTA (whose reads get quality 40) and as a BAM of
+    unaligned records (BGZF is gzip: one gzip member holds it); the first
+    N_CPU_READS again as a FASTQ for the CPU run. Returns the four
+    paths."""
+    import gzip
+    import struct
+
+    recs = _fastq_records(fq)
+    paths = [os.path.join(wd, f"input.{x}") for x in ("fq", "fa", "bam")]
+    paths.append(os.path.join(wd, "input.head.fq"))
+    code = np.zeros(256, np.uint8)
+    code[list(b"ACGTN")] = (1, 2, 4, 8, 15)
+    body = [b"BAM\x01", struct.pack("<ii", 0, 0)]
+    with open(paths[0], "w") as fq_out, open(paths[1], "w") as fa, \
+            open(paths[3], "w") as head:
+        for i, (name, seq) in enumerate(recs):
+            rec = f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n"
+            fq_out.write(rec)
+            if i < N_CPU_READS:
+                head.write(rec)
+            fa.write(f">{name}\n{seq}\n")
+            c = code[np.frombuffer(seq.encode(), np.uint8)]
+            c = np.concatenate([c, np.zeros(len(c) % 2, np.uint8)])
+            raw = (struct.pack("<iiBBHHHiiii", -1, -1, len(name) + 1, 0, 0,
+                               0, 4, len(seq), -1, -1, 0)
+                   + name.encode() + b"\x00"
+                   + ((c[0::2] << 4) | c[1::2]).astype(np.uint8).tobytes()
+                   + bytes([40]) * len(seq))
+            body += [struct.pack("<i", len(raw)), raw]
+    with gzip.open(paths[2], "wb") as f:
+        f.write(b"".join(body))
+    return paths
+
+
+def option_run(phase_tag, idx, inputs, sam, flags, n_items, local, smi):
+    """One align on the card with the CLI's options (``counted``): logs
+    reads/s, the launches and the phase timers. Fails if the run launched
+    no kernel of its mode, launched the other mode's, or bypassed the
+    native finisher. Returns (records, launches by (L, C), the aligner,
+    wall seconds)."""
+    wall, launches, shapes, _streams, finishes, al = counted(
+        lambda: cli.main(["align", "-x", idx, *inputs, "-S", sam,
+                          "--device", "cuda", *flags]))
+    log(f"[11] ({phase_tag}) {' '.join(flags)}: {n_items} reads in "
+        f"{wall:.2f} s = {n_items / wall:.1f} reads/s (wall, index load "
+        f"included; {smi}); K1 launches {launches[0]}, K2 launches "
+        f"{launches[1]}; native finisher batches {finishes}")
+    log(f"[11]   launches by (L, C): " + ", ".join(
+        f"{L}x{C}: {n}" for (L, C), n in sorted(shapes.items())))
+    for line in al.timers.render().splitlines():
+        log(f"[11]   {line}")
+    log(f"[11]   {al.metrics.render()}")
+    mine, other = (launches[1], launches[0]) if local else launches
+    if mine <= 0 or other != 0 or not finishes:
+        raise AssertionError(f"line ({phase_tag}): launches {launches}, "
+                             f"native finisher batches {finishes}")
+    return sam_records(sam), shapes, al, wall
+
+
+def cpu_prefix(phase_tag, idx, inputs, sam, flags, recs):
+    """The head of a line's input on the CPU (plain versions only): its
+    records must be the card's first records byte for byte, and the
+    card's next record must belong to a read past the head."""
+    cli.main(["align", "-x", idx, *inputs, "-S", sam, "--device", "cpu",
+              *flags])
+    cpu = sam_records(sam)
+    names = {r.split("\t", 1)[0] for r in cpu}
+    same = (bool(cpu) and recs[: len(cpu)] == cpu
+            and (len(recs) == len(cpu)
+                 or recs[len(cpu)].split("\t", 1)[0] not in names))
+    log(f"[11] ({phase_tag}) the head on cpu (plain versions): "
+        f"{len(cpu)} records of {len(names)} reads "
+        f"{'byte-identical to' if same else 'DIFFER from'} the cuda run's")
+    if not same:
+        raise AssertionError(f"line ({phase_tag}): cpu and cuda SAM differ")
+
+
+def run_options(idx, sets, pdata, wd, smi, rng, entries, held):
+    """Phase 11: the option lines of OPTION_LINES on the card at phase 5's
+    size, each held to the port's CPU run on its head and to the checks
+    of its options. Lines (a) and (c) change the DP's penalties: each
+    kernel is also held against its plain version at every (L, C) they
+    launched, with their penalties. Returns {line: launches by (L,
+    C)}."""
+    from omp_bowtie2_prime_tpu_torch.models.aligner import AlignOpts
+
+    fq, head = sets["e2e"][0], sets["e2e"][1]
+    lfq, lhead = sets["local"][0], sets["local"][1]
+    ifq, ifa, ibam, ihead = write_input_formats(wd, fq)
+    n_e2e, n_local = N_READS["e2e"], N_READS["local"]
+    out = {}
+
+    def flags_of(line, tag):
+        return [f.format(out=os.path.join(wd, f"{tag}_"))
+                for f in OPTION_LINES[line][1]]
+
+    def hold_params(tag, line, shapes, al):
+        for L, C in sorted(shapes):
+            row = hold_case(tag, rng, f"line ({line}) L{L} C{C}", 64, L,
+                            C - 1, dict(lens=(max(1, L - 30), max(1, L - 5)),
+                                        flanks=tag == "K2", n_inside=True),
+                            phase=11, params=al.swp)
+            entries[tag][sw_cuda.is_narrow(L, C)]["shapes"].append(row)
+
+    # (a): three seeding rounds, the sub-ftab search, a grid of several
+    # chunks, the line's penalties in K1
+    lens = np.array([len(s) for _n, s in _fastq_records(fq)[:8192]])
+    L_a = 10
+    lanes = 2 * int((lens - L_a + 1).sum())  # -i C,1,0: a seed at every
+    cap = AlignOpts().grid_lanes_cap         # offset, both orientations
+    log(f"[11] (a) round 0 of the first batch: {lanes} seed lanes against "
+        f"grid_lanes_cap {cap}: {-(-lanes // cap)} chunks")
+    if lanes <= cap:
+        raise AssertionError("line (a): the grid fits one chunk")
+    fl = flags_of("a", "a")
+    recs, shapes, al, _w = option_run("a", idx, ["-U", fq],
+                                      os.path.join(wd, "opt_a.sam"), fl,
+                                      n_e2e, False, smi)
+    if al.fm.ftab_k <= L_a or al.opts.nrounds != 3:
+        raise AssertionError(f"line (a): ftab_k {al.fm.ftab_k}, rounds "
+                             f"{al.opts.nrounds}")
+    with open(head) as src, open(os.path.join(wd, "head_a.fq"), "w") as dst:
+        for _ in range(4 * N_CPU_READS_A):
+            dst.write(src.readline())
+    cpu_prefix("a", idx, ["-U", os.path.join(wd, "head_a.fq")],
+               os.path.join(wd, "cpu_a.sam"), fl, recs)
+    hold_params("K1", "a", shapes, al)
+    out["a"] = shapes
+
+    # (b): -k 5 --norc --no-unal with --un/--al, read groups, =/X CIGARs
+    fl = flags_of("b", "b")
+    recs, shapes, al, _w = option_run("b", idx, ["-U", fq],
+                                      os.path.join(wd, "opt_b.sam"), fl,
+                                      n_e2e, False, smi)
+    per_read = collections.Counter(r.split("\t", 1)[0] for r in recs)
+    flags = [int(r.split("\t", 2)[1]) for r in recs]
+    first = {}
+    for r, f in zip(recs, flags):
+        name = r.split("\t", 1)[0]
+        if f & 16 or f & 4 or (f & 256) != (256 if name in first else 0):
+            raise AssertionError(f"line (b): record {r[:120]}")
+        first.setdefault(name, r)
+        if "RG:Z:g1" not in r:
+            raise AssertionError(f"line (b): no read group: {r[:120]}")
+    n_un, n_al = (fastq_count(os.path.join(wd, f"b_{x}.fq"))
+                  for x in ("un", "al"))
+    log(f"[11] (b) {len(per_read)} reads with records, at most "
+        f"{max(per_read.values())} a read, {sum(f & 256 > 0 for f in flags)} "
+        f"secondaries, none on the reverse strand; --un {n_un} + --al "
+        f"{n_al} = {n_un + n_al} of {n_e2e} reads")
+    if max(per_read.values()) > 5 or n_un + n_al != n_e2e \
+            or n_al != len(per_read):
+        raise AssertionError("line (b): records a read or --un/--al counts")
+    cpu_prefix("b", idx, ["-U", head], os.path.join(wd, "cpu_b.sam"),
+               flags_of("b", "cpu_b"), recs)
+    out["b"] = shapes
+
+    # (c): K2 with the line's match bonus and penalties, -a, --nofw
+    fl = flags_of("c", "c")
+    recs, shapes, al, _w = option_run("c", idx, ["-U", lfq],
+                                      os.path.join(wd, "opt_c.sam"), fl,
+                                      n_local, True, smi)
+    flags = np.array([int(r.split("\t", 2)[1]) for r in recs])
+    aligned = (flags & 4) == 0
+    log(f"[11] (c) {len(recs)} records, {int(aligned.sum())} aligned, "
+        f"{int(((flags & 256) > 0).sum())} secondaries, "
+        f"{sum('S' in r.split(chr(9), 6)[5] for r in recs)} with a soft "
+        "clip; every aligned record on the reverse strand")
+    if not aligned.any() or ((flags[aligned] & 16) == 0).any():
+        raise AssertionError("line (c): a forward record under --nofw")
+    cpu_prefix("c", idx, ["-U", lhead], os.path.join(wd, "cpu_c.sam"), fl,
+               recs)
+    hold_params("K2", "c", shapes, al)
+    out["c"] = shapes
+
+    # (d): the same reads from FASTQ, FASTA (-f) and BAM (-b), trimmed
+    fl = flags_of("d", "d")
+    n_d = min(20000, n_e2e - 100)
+    runs = {}
+    for kind, inputs in (("fastq", ["-U", ifq]), ("fasta", ["-f", "-U", ifa]),
+                         ("bam", ["-b", ibam])):
+        recs, shapes, al, _w = option_run(
+            f"d {kind}", idx, inputs, os.path.join(wd, f"opt_d_{kind}.sam"),
+            fl, n_d, False, smi)
+        runs[kind] = recs
+        out[f"d {kind}"] = shapes
+    same = runs["fasta"] == runs["fastq"] == runs["bam"]
+    log(f"[11] (d) FASTA and BAM records {'equal to' if same else 'DIFFER '
+        'from'} the FASTQ run's ({len(runs['fastq'])} records, reads 101 to "
+        f"{100 + n_d} trimmed 3 + 5)")
+    if not same or len(runs["fastq"]) != n_d:
+        raise AssertionError("line (d): the inputs' SAM differ")
+    cpu_prefix("d", idx, ["-U", ihead], os.path.join(wd, "cpu_d.sam"), fl,
+               runs["fastq"])
+
+    # (e): pairs with --nofw as fragment bans, -p 1 and -p 2
+    inputs, pheads, _truth = pdata
+    p_recs = {}
+    for p in ("1", "2"):
+        fl = flags_of("e", f"e{p}") + ["-p", p]
+        recs, shapes, al, _w = option_run(
+            f"e -p {p}", idx, inputs, os.path.join(wd, f"opt_e{p}.sam"), fl,
+            2 * N_PAIRS, False, smi)
+        p_recs[p] = recs
+        out[f"e -p {p}"] = shapes
+    recs = p_recs["1"]
+    flags = [int(r.split("\t", 2)[1]) for r in recs]
+    bad = [r for r, f in zip(recs, flags) if not f & 4
+           and bool(f & 16) != bool(f & 64)]
+    n_conc = sum(1 for f in flags if f & 64 and f & 2)
+    n_uc = [fastq_count(os.path.join(wd, f"e{p}_uc.{m}.fq"))
+            for p in "12" for m in (1, 2)]
+    same = p_recs["1"] == p_recs["2"] and n_uc[:2] == n_uc[2:]
+    log(f"[11] (e) {n_conc} of {N_PAIRS} pairs concordant, every aligned "
+        f"mate 1 reverse and mate 2 forward: {not bad}; --un-conc "
+        f"{n_uc[0]} pairs; -p 2's SAM and --un-conc "
+        f"{'equal to' if same else 'DIFFER from'} -p 1's")
+    if bad or not same or n_uc[0] != n_uc[1] \
+            or n_uc[0] != N_PAIRS - n_conc:
+        raise AssertionError("line (e): strands, -p 2 or --un-conc")
+    cpu_prefix("e", idx, pheads, os.path.join(wd, "cpu_e.sam"),
+               flags_of("e", "cpu_e"), recs)
+    return out
+
+
 def main():
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1194,6 +1469,9 @@ def main():
                                         wd, base)
         for path in ("e2e -p 2", "paired -p 2", "e2e stream"):
             count("K1", path, shapes10[path])
+        for line, shapes in run_options(idx, sets, pdata, wd, smi, rng,
+                                        entries, held).items():
+            count("K2" if line == "c" else "K1", f"options ({line})", shapes)
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")

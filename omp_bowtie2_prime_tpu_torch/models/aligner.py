@@ -23,10 +23,12 @@ for its unpaired path on one device, end to end or, with
                        N-filled window, take the same kernel, and are
                        finished in reference space
   finish               native CIGAR/MD (soft clips in local mode),
-                       tighten, MAPQ V2, results
+                       tighten, MAPQ V2 or V3, results
 
-Rounds: 0, 1, then the half-read rescue round. The results are those of
-``TPUAligner.align_batch`` read for read. models/paired.py drives the
+Rounds: -R seeding rounds (0 and 1 by default), then the half-read
+rescue round; --nofw / --norc leave out the seeds of one orientation (fw
+lanes before rc lanes, as the JAX package orders them). The results are
+those of ``TPUAligner.align_batch`` read for read. models/paired.py drives the
 same phases for read pairs (``collect_candidates`` per round, then mate
 rescue through ``_run_dp_bt``).
 
@@ -57,7 +59,7 @@ from ..ops.rank import take
 from ..utils import cigar as cigar_util
 from ..utils import dna
 from ..utils import rng as refrng
-from ..utils.mapq import mapq_v2_e2e, mapq_v2_local
+from ..utils.mapq import mapq_v2_e2e, mapq_v2_local, mapq_v3
 from ..utils.metrics import PhaseTimers, PipelineMetrics
 from ..utils.scoring import SIMPLE_FUNC_SQRT, Scoring, SimpleFunc
 
@@ -83,13 +85,15 @@ class AlignOpts:
     nrounds: int = 2  # -R
     dps: int = 15  # -D extension fail-streak budget
     seed_boost: int = 300  # --seed-boost re-seed gate
-    # --nofw / --norc: PairedAligner takes them as per-mate bans; the
-    # engine does not skip seeds by orientation yet (collect_candidates
-    # refuses them)
-    nofw: bool = False
-    norc: bool = False
+    nofw: bool = False  # --nofw: no forward-orientation seeds
+    norc: bool = False  # --norc: no reverse-complement seeds
     khits: int = 1  # -k
     allhits: bool = False  # -a
+    # --tighten: how the running minimum score rises once a best and a
+    # second best are known (0 off, 1 best, 2 second best + 1, 3
+    # interpolated)
+    tighten: int = 3
+    mapqv: int = 2  # --mapq-v: 2 = MAPQ V2, 3 = the V3 table
     rng_seed: int = 0  # --seed
     seed_batch: int = 32768  # host-path search chunk
     grid_lanes_cap: int = 1 << 20  # grid lanes per chunk
@@ -430,7 +434,8 @@ class TorchAligner:
 
     def _instantiate_seeds(self, indices, roundi: int):
         """(seeds [S, seed_len] int8, (ri, fw, off)) for the given reads,
-        all resident in the batch matrices: fw seeds then rc seeds."""
+        all resident in the batch matrices: fw seeds then rc seeds, less
+        the orientation --nofw / --norc bans."""
         o = self.opts
         sl = o.seed_len
         idx = np.asarray(list(indices), np.int64)
@@ -440,7 +445,7 @@ class TorchAligner:
         lens = self._mat_lens[idx].astype(np.int64)
         rsel, d, eff_s = self._seed_grid(idx, lens, roundi)
         S = len(rsel)
-        if S == 0:
+        if S == 0 or (o.nofw and o.norc):
             return np.zeros((0, sl), np.int8), (
                 np.zeros(0, np.int32), np.zeros(0, bool),
                 np.zeros(0, np.int32),
@@ -460,13 +465,18 @@ class TorchAligner:
                 v = np.where(real, v, np.int8(-1))
             return v
 
-        rc_off = lens[rsel] - d - eff_s
-        seeds = np.concatenate([win(2 * ri_s * L + d),
-                                win((2 * ri_s + 1) * L + rc_off)])
-        return seeds, (
-            np.concatenate([ri_s, ri_s]).astype(np.int32),
-            np.repeat([True, False], S),
-            np.concatenate([d, rc_off]).astype(np.int32),
+        chunks, metas = [], []
+        if not o.nofw:
+            chunks.append(win(2 * ri_s * L + d))
+            metas.append((np.ones(S, bool), d))
+        if not o.norc:
+            rc_off = lens[rsel] - d - eff_s  # mirrored rc offsets
+            chunks.append(win((2 * ri_s + 1) * L + rc_off))
+            metas.append((np.zeros(S, bool), rc_off))
+        return np.concatenate(chunks), (
+            np.concatenate([ri_s] * len(metas)).astype(np.int32),
+            np.concatenate([m[0] for m in metas]),
+            np.concatenate([m[1] for m in metas]).astype(np.int32),
         )
 
     # ---------------- host path: device search + resolve ----------------
@@ -602,17 +612,18 @@ class TorchAligner:
                 0,
             )
         G = int(cnt.sum())
-        if G == 0:
+        orients = int(not o.nofw) + int(not o.norc)
+        if G == 0 or orients == 0:
             return "empty"
         sub_ftab = bool((eff[cnt > 0] < self.fm.ftab_k).any())
-        lanes = 2 * G  # fw and rc seeds
+        lanes = orients * G  # fw and / or rc seeds
         if lanes <= o.grid_lanes_cap:
             SB = 1 << max(13, (lanes - 1).bit_length())
             NC = 1
         else:
             SB = o.grid_lanes_cap
             NC = (lanes + SB - 1) // SB
-        K = NC * SB // 2
+        K = NC * SB // orients
         p_cap = max(P_CAP, 2 * npad)
         with self.timers.phase("searchResolve.dispatch"):
             out = self._grid_device(act, roundi, sub_ftab, K, NC, SB, p_cap)
@@ -640,16 +651,25 @@ class TorchAligner:
             lens, ival, self._to_dev(act), K=K, seed_len=o.seed_len,
             nrounds=o.nrounds, roundi=roundi,
         )
-        # lanes [0, K) fw seeds, [K, 2K) rc seeds (mirrored offsets)
-        src = torch.cat([2 * rs, 2 * rs + 1])
-        m_fw = torch.arange(2 * K, device=self.device) < K
-        eff2 = torch.cat([eff, eff])
-        valid = torch.cat([vg, vg])
-        lseed = rdseed[rs.clamp(0, npad - 1)].repeat(2)
-        m_ri = torch.where(valid, torch.cat([rs, rs]),
-                           torch.full_like(src, npad))
-        m_off = torch.where(valid, torch.cat([d, lens[rs] - d - eff]),
-                            torch.zeros_like(src))
+        # lanes [0, K) fw seeds, [K, 2K) rc seeds (mirrored offsets);
+        # --nofw / --norc leave one block of K
+        srcs, offs, fws = [], [], []
+        if not o.nofw:
+            srcs.append(2 * rs)
+            offs.append(d)
+            fws.append(torch.ones(K, dtype=torch.bool, device=self.device))
+        if not o.norc:
+            srcs.append(2 * rs + 1)
+            offs.append(lens[rs] - d - eff)
+            fws.append(torch.zeros(K, dtype=torch.bool, device=self.device))
+        k = len(srcs)
+        src = torch.cat(srcs)
+        m_fw = torch.cat(fws)
+        eff2 = eff.repeat(k)
+        valid = vg.repeat(k)
+        lseed = rdseed[rs.clamp(0, npad - 1)].repeat(k)
+        m_ri = torch.where(valid, rs.repeat(k), torch.full_like(src, npad))
+        m_off = torch.where(valid, torch.cat(offs), torch.zeros_like(src))
         parts = []
         for c in range(NC):
             sl = slice(c * SB, (c + 1) * SB)
@@ -999,10 +1019,6 @@ class TorchAligner:
         predisp: dispatch_round0's handle for this round; after_dp: the
         (build, dispatch) callbacks of align_batch's ``_next_cb``, called
         once the main DP and the wide escalation are queued."""
-        if self.opts.nofw or self.opts.norc:
-            raise NotImplementedError(
-                "--nofw/--norc seeding is not ported yet (ROADMAP.md, port "
-                "queue: the rest of the align option surface)")
         with self._on_stream():
             cands, table = self._collect_round(len(reads), minscs, active,
                                                roundi, columnar, predisp,
@@ -1707,13 +1723,14 @@ class TorchAligner:
             read.seq, read.qual, read.name, self.opts.rng_seed
         ))
 
-    @staticmethod
-    def _tighten_filter(alns: dict, minsc: int, perfect: int) -> dict:
-        """-M minsc tightening, the reference's default mode (--tighten 3:
-        interpolated): replay the candidate stream in report order,
-        raising the running minimum to 3/4 of the way from second best to
-        best; candidates below it are those whose DP the reference would
-        have failed."""
+    def _tighten_filter(self, alns: dict, minsc: int, perfect: int) -> dict:
+        """-M minsc tightening: replay the candidate stream in report
+        order, raising the running minimum once a best and a second best
+        are known, by --tighten mode: 1 to the best, 2 past the second
+        best, 3 (the default) to 3/4 of the way from second best to best;
+        candidates below it are those whose DP the reference would have
+        failed."""
+        mode = self.opts.tighten
         best = sec = None
         cur = minsc
         out = {}
@@ -1728,14 +1745,23 @@ class TorchAligner:
                 sec = s
             if sec is None:
                 continue
-            bot = sec + ((best - sec) * 3) // 4
-            if bot >= cur:
-                cur = bot + (1 if bot < perfect else 0)
+            if mode == 1:
+                if best >= cur:
+                    cur = best + (1 if best < perfect and best == sec else 0)
+            elif mode == 2:
+                if sec >= cur:
+                    cur = sec + (1 if sec < perfect else 0)
+            else:
+                bot = sec + ((best - sec) * 3) // 4
+                if bot >= cur:
+                    cur = bot + (1 if bot < perfect else 0)
         return out
 
     def _mapq_fn(self):
-        """MAPQ V2: the local table (the reference's non-monotone branch)
-        in local mode."""
+        """MAPQ V3 with --mapq-v 3; else V2, the local table (the
+        reference's non-monotone branch) in local mode."""
+        if self.opts.mapqv == 3:
+            return mapq_v3
         return mapq_v2_local if self.opts.local else mapq_v2_e2e
 
     def _finalize_unpaired(self, reads, minscs, cands, results,
@@ -1747,6 +1773,7 @@ class TorchAligner:
             self._finalize_singles_table(minscs, table, results)
         o = self.opts
         multi = o.allhits or o.khits > 1
+        tighten = o.tighten and not multi
         bonus = self.sc.match_bonus
         mins_l = np.asarray(minscs, np.int64).tolist()
         lens_l = self._mat_lens.tolist()
@@ -1759,7 +1786,7 @@ class TorchAligner:
             if la == 1:
                 singles.append((ri, next(iter(alns.values()))))
                 continue
-            if not multi and la > 2:  # fewer than 3 candidates never prune
+            if tighten and la > 2:  # fewer than 3 candidates never prune
                 alns = self._tighten_filter(alns, mins_l[ri],
                                             bonus * lens_l[ri])
             if len(alns) == 1:

@@ -3,9 +3,11 @@ plain PyTorch versions, on the card, at the narrow shapes (a row in the
 warp's registers) and the wide ones (column tiles, a warp each: L up to
 1024, C past 288), a paired align on the card against the same align on
 the CPU, and two aligners on two CUDA streams (-p 2, align_stream, many
-small batches through two workers) against one. The kernels have no CPU
-mode: these tests skip without a CUDA device. The file imports no JAX, so
-it runs where JAX is absent:
+small batches through two workers) against one, and CLI option lines
+(orientation bans, dense seeds below the ftab width, other penalties, -k
+and -a, pairs with --nofw) on the card against the CPU. The kernels have
+no CPU mode: these tests skip without a CUDA device. The file imports no
+JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -675,3 +677,53 @@ def test_two_workers_many_small_batches(cuda):
     assert a1.metrics.reads > 0 and a2.metrics.reads > 0
     for i, (a, b) in enumerate(zip(serial, got)):
         assert _fields(a) == _fields(b), i
+
+
+_OPTION_LINES = {
+    "norc -k3 very-sensitive": ["--norc", "-k", "3", "--very-sensitive"],
+    "L8 dense -i penalties mapq-v3 tighten1": [
+        "-L", "8", "-i", "C,1,0", "--rdg", "6,2", "--rfg", "7,3", "--mp",
+        "4,2", "--np", "2", "--mapq-v", "3", "--tighten", "1"],
+    "local nofw -a ma3 ignore-quals": [
+        "--very-sensitive-local", "--nofw", "-a", "--ma", "3", "--mp", "5,1",
+        "--ignore-quals"],
+    # the pairs' fragments all lie on the forward strand: --norc keeps
+    # them, --nofw would ban every one
+    "pairs norc very-fast -X 600 no-mixed": [
+        "--norc", "--very-fast", "-X", "600", "--no-mixed"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_OPTION_LINES))
+def test_option_lines_on_the_card_equal_cpu(cuda, tmp_path, case):
+    """The CLI with option lines that change the seed grid, the DP's
+    penalties and the reporting writes on the card the records of its CPU
+    run (plain versions), byte for byte."""
+    from omp_bowtie2_prime_tpu_torch import cli
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    fm, pairs = _paired_setup()
+    text = dna.unpack_2bit(fm.ref_words, fm.n)
+    with open(tmp_path / "g.fa", "w") as f:
+        f.write(">chrP\n" + dna.decode(text) + "\n")
+    idx = str(tmp_path / "g.npz")
+    cli.main(["build", str(tmp_path / "g.fa"), idx])
+    if case.startswith("pairs"):
+        _write_fastq(tmp_path / "m1.fq", [a for a, _b in pairs])
+        _write_fastq(tmp_path / "m2.fq", [b for _a, b in pairs])
+        inputs = ["-1", str(tmp_path / "m1.fq"), "-2", str(tmp_path / "m2.fq")]
+    else:
+        _write_fastq(tmp_path / "r.fq", _single_reads(fm, 300, 11))
+        inputs = ["-U", str(tmp_path / "r.fq")]
+    sams = {}
+    for dev in ("cpu", "cuda"):
+        sam = tmp_path / f"{dev}.sam"
+        cli.main(["align", "-x", idx, *inputs, "-S", str(sam), "--device",
+                  dev, *_OPTION_LINES[case]])
+        with open(sam) as f:
+            sams[dev] = [ln for ln in f.read().splitlines()
+                         if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
+    assert any(not int(ln.split("\t")[1]) & 4 for ln in sams["cpu"]
+               if not ln.startswith("@"))

@@ -164,13 +164,16 @@ def test_align_sam_byte_identical(genome, seed):
 
 
 def test_port_cli_refuses_unported_options(tmp_path):
+    """What the port still refuses: the build options and -o/--offrate
+    (ROADMAP.md item "build and inspect") and a .bt2 index (".bt2 I/O")."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for extra, item in ((["--align-paired-reads"], "align option surface"),
-                        (["--large-index"], "build and inspect"),
-                        (["-k", "3"], "align option surface")):
+    (tmp_path / "b.1.bt2").write_bytes(b"")
+    for x, extra, item in (("i.npz", ["--large-index"], "build and inspect"),
+                           ("i.npz", ["-o", "5"], "build and inspect"),
+                           ("b", [], ".bt2 I/O")):
         r = subprocess.run(
             [sys.executable, "-m", "omp_bowtie2_prime_tpu_torch.cli", "align",
-             "-x", "i.npz", "-U", "r.fq", *extra], cwd=tmp_path, env=env,
+             "-x", x, "-U", "r.fq", *extra], cwd=tmp_path, env=env,
             capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert "ROADMAP.md" in r.stderr and item in r.stderr, r.stderr

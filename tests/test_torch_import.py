@@ -17,6 +17,7 @@ sys.modules["omp_bowtie2_prime_tpu"] = None
 import numpy as np
 import omp_bowtie2_prime_tpu_torch
 from omp_bowtie2_prime_tpu_torch import cli
+from omp_bowtie2_prime_tpu_torch.io import bam
 from omp_bowtie2_prime_tpu_torch.index.builder import build_index_from_text
 from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
 from omp_bowtie2_prime_tpu_torch.io.fastq import Read

@@ -254,13 +254,19 @@ def test_rescue_runs_at_the_wide_shape(pe_data):
 
 
 def test_engine_refuses_nofw_norc(pe_data):
-    """The engine does not skip seeds by orientation: unpaired reads with
-    --nofw/--norc are refused, naming the ROADMAP item."""
+    """The engine no longer refuses --nofw/--norc: the mates as unpaired
+    reads with norc align as the JAX package's TPUAligner aligns them, on
+    the forward strand only."""
     _wd, idx, _seqs, pairs = pe_data
+    reads = [pr for pr in pairs[:20]]
     tal = TorchAligner(FMIndex.load(idx), opts=AlignOpts(norc=True),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="align option surface"):
-        tal.align_batch([r for pr in _reads(pairs[:2], Read) for r in pr])
+    jal = TPUAligner(JFMIndex.load(idx), opts=JOpts(norc=True))
+    tres = tal.align_batch([r for pr in _reads(reads, Read) for r in pr])
+    jres = jal.align_batch([r for pr in _reads(reads, JRead) for r in pr])
+    assert [_aln_key(r) for r in tres] == [_aln_key(r) for r in jres]
+    assert any(r.status == "aligned" for r in tres)
+    assert all(r.fw for r in tres if r.status == "aligned")
 
 
 # ---------------- both CLIs -------------------------------------------

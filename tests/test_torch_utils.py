@@ -261,6 +261,66 @@ def test_fastq_parsing(tmp_path):
     assert [len(x) for x in jb] == [len(x) for x in tb] == [2, 1]
 
 
+def _bam(path, recs):
+    """A BAM of unaligned records, gzip-compressed as tests/test_cli.py
+    writes one: recs are (name, seq, flag, aux bytes), quals 0..39."""
+    import gzip
+    import struct
+
+    code = {"A": 1, "C": 2, "G": 4, "T": 8, "N": 15}
+    body = b"BAM\x01" + struct.pack("<i", 0) + struct.pack("<i", 0)
+    for name, seq, flag, aux in recs:
+        packed = bytearray()
+        for i in range(0, len(seq), 2):
+            lo = code[seq[i + 1]] if i + 1 < len(seq) else 0
+            packed.append((code[seq[i]] << 4) | lo)
+        rec = struct.pack("<iiBBHHHiiii", -1, -1, len(name) + 1, 0, 0, 0,
+                          flag, len(seq), -1, -1, 0)
+        rec += (name.encode() + b"\x00" + bytes(packed)
+                + bytes(i % 40 for i in range(len(seq))) + aux)
+        body += struct.pack("<i", len(rec)) + rec
+    with gzip.open(path, "wb") as f:
+        f.write(body)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["reads", "pairs"])
+def test_bam_reader(tmp_path, paired):
+    """io/bam.py of both packages on one BAM: the same reads (reverse-flag
+    records restored, secondaries skipped, mates paired by name) and, with
+    --preserve-tags, the same aux text."""
+    import struct
+
+    from omp_bowtie2_prime_tpu.io import bam as jbam
+    from omp_bowtie2_prime_tpu_torch.io import bam as tbam
+
+    aux = (b"XYZhello\x00" + b"AMc" + struct.pack("<b", -3) + b"XFf"
+           + struct.pack("<f", 1.5) + b"ZBBC" + struct.pack("<I", 3)
+           + bytes([1, 2, 3]))
+    path = str(tmp_path / "in.bam")
+    seqs = ["ACGTTGCAAGN", "GGGTACCA", "TTAGCANNA", "CAGT"]
+    if paired:
+        _bam(path, [(f"p{k // 2}/{k % 2 + 1}", s, 0x1 | 0x4 | (
+            0x80 if k % 2 else 0x40) | (0x10 if k == 1 else 0), aux)
+            for k, s in enumerate(seqs)])
+        jr = [r for pr in jbam.read_bam_pairs(path, preserve_tags=True)
+              for r in pr]
+        tr = [r for pr in tbam.read_bam_pairs(path, preserve_tags=True)
+              for r in pr]
+    else:
+        _bam(path, [("r0", seqs[0], 4, aux), ("r1", seqs[1], 4 | 0x10, b""),
+                    ("r2", seqs[2], 4 | 0x100, b""), ("r3", seqs[3], 4, aux)])
+        jr = list(jbam.read_bam(path, preserve_tags=True))
+        tr = list(tbam.read_bam(path, preserve_tags=True))
+    assert len(jr) == len(tr) == (4 if paired else 3)
+    for a, b in zip(jr, tr):
+        assert (a.rdid, a.name, a.preserved_tags) == (
+            b.rdid, b.name, b.preserved_tags)
+        np.testing.assert_array_equal(a.seq, b.seq)
+        np.testing.assert_array_equal(a.qual, b.qual)
+    assert tr[0].preserved_tags == ("\tXY:Z:hello\tAM:i:-3\tXF:f:1.500000"
+                                    "\tZB:B:C,1,2,3")
+
+
 @pytest.mark.parametrize("kind", ["aligned", "clipped", "unaligned"])
 def test_sam_writer_records(kind):
     rng = np.random.default_rng(6)
