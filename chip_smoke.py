@@ -5,8 +5,10 @@
 
 Drives the port's main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
 ``align -U`` end to end, ``align -U --local``, both again on long reads
-against a reference with N runs, and ``align -1 -2`` paired, end to end and
-``--local``) at a real size: two 4.6 Mbp genomes (a bacterium's size),
+against a reference with N runs, ``align -1 -2`` paired, end to end and
+``--local``, and the index surface: the blockwise and .bt2 builds,
+``inspect``, aligns on .bt2 / .bt2l imports and with ``-o``, an index
+past 2^31 rows) at a real size: two 4.6 Mbp genomes (a bacterium's size),
 25,000 simulated reads for the end-to-end path, 50,000 for the local one,
 10,000 of 100 to 1,000 bp for the long one and 20,000 pairs of 2 x 150 bp
 for the paired one.
@@ -74,6 +76,22 @@ Phases, one line each, stamped with the seconds since the start:
      imply, reads/s and the phase timers; lines (a) and (c) hold their
      kernel against its plain version, with their penalties, at every
      (L, C) they launched.
+ 12. the index surface, on phase 4's genome: (a) ``build --bmaxdivn 8
+     --dcv 1024`` (the blockwise build), every array equal to phase 4's
+     in-memory build, both build times; (b) ``build --bt2`` and ``build
+     --bt2 --large-index`` (six files each), ``inspect`` (the FASTA), -s
+     and -n on the .npz and on the .bt2 prefix, the FASTA the genome's;
+     (c) ``align -x`` on the .bt2 and the .bt2l import (phase 5's reads)
+     and with --local on the .bt2 import (phase 6's), ``align -o 5`` on
+     the .npz (phase 5's): each run's records equal to its phase's, its
+     first reads' to the port's CPU run, with reads/s, the load's split
+     (reading, inverse BWT, suffix sort, assembly), the launches and the
+     walk's LF steps; (d) the closed-form index of A^n with n = 2^31 +
+     2^20 (rows past 2^31) built on the host and uploaded: occ, lf,
+     lf_row, the SA walk, the seed search and the window gather on the
+     card at a million rows, a third of them past 2^31, equal to the
+     closed form, and K1 on windows gathered there equal to its plain
+     version; the index is freed after it.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -103,7 +121,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from omp_bowtie2_prime_tpu_torch import cli, native  # noqa: E402
-from omp_bowtie2_prime_tpu_torch.ops import _build, sw, sw_cuda  # noqa: E402
+from omp_bowtie2_prime_tpu_torch.ops import (  # noqa: E402
+    _build, sw, sw_cuda, walk)
 
 SEED = 20261016
 GENOME_BP = 4_600_000
@@ -327,15 +346,18 @@ def where_they_differ(args, got, want, got2, want2):
 
 
 def hold_case(tag, rng, label, B, L, W, kw, compare=True, phase=3,
-              params=None):
+              params=None, args=None):
     """One kernel on one set of problems: held against its plain version
     bit for bit (unless compare is False), timed, and set beside its
     bound. ``params`` (sw.SWParams) replaces the kernel's default
-    penalties. Returns the case's row of the kernels line."""
+    penalties; ``args`` (reads, pens, rdlens, refs, wlens on the card)
+    replaces the problems made from ``kw``. Returns the case's row of the
+    kernels line."""
     k = KERNELS[tag]
     p, wrapper, plain = params or k["params"], k["wrapper"], k["plain"]
-    args = (tie_problems(rng, B, L, W) if kw is None
-            else dp_problems(rng, B, L, W, **kw))
+    if args is None:
+        args = (tie_problems(rng, B, L, W) if kw is None
+                else dp_problems(rng, B, L, W, **kw))
     plain_ms = err = None
     if compare:
         got = wrapper(*args, p)
@@ -499,7 +521,8 @@ def write_reads(path, rng, text, n_reads, flanked):
 
 
 def make_data(wd):
-    """Phase 4: genome, the two read sets with their origins, the index."""
+    """Phase 4: genome, the two read sets with their origins, the index
+    (and the seconds its build took)."""
     rng = np.random.default_rng(SEED)
     text = rng.integers(0, 4, GENOME_BP).astype(np.int8)
     fa = os.path.join(wd, "genome.fa")
@@ -516,6 +539,7 @@ def make_data(wd):
     idx = os.path.join(wd, "genome.npz")
     t0 = time.perf_counter()
     cli.main(["build", fa, idx])
+    build_s = time.perf_counter() - t0
     n_fl = int(sets["local"][5].sum())
     log(f"[4] data: {GENOME_BP} bp genome; {N_READS['e2e']} reads for the "
         f"end-to-end path and {N_READS['local']} for the local one "
@@ -523,8 +547,8 @@ def make_data(wd):
         f"{int(sets['e2e'][3].sum())} / {int(sets['local'][3].sum())} with a "
         f"1-3 bp indel, both strands); in the local set {n_fl} reads carry "
         "5-30 bp of random flank at one or both ends; index built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return idx, sets, text
+        f"{build_s:.1f} s")
+    return idx, sets, text, build_s
 
 
 def simulate_mate(rng, text, p, fw, ln=150):
@@ -716,6 +740,7 @@ def counted(run):
     sw_cuda.SHAPES.clear()
     sw_cuda.STREAMS.clear()
     native.FINISH_CALLS = 0
+    walk.STEPS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run()
@@ -726,14 +751,16 @@ def counted(run):
             dict(sw_cuda.STREAMS), native.FINISH_CALLS, out)
 
 
-def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
-    """One warm run and one timed run on the card (``counted``). Logs
-    reads/s, the aligned fraction, the timers and the counters; returns
+def timed_align(phase, idx, fq, sam, local, n_reads, flags=(), warm=True):
+    """One warm run (unless ``warm`` is False) and one timed run on the
+    card (``counted``). Logs reads/s, the aligned fraction, the timers
+    and the counters (the walk's LF steps among them); returns
     (records, flags column, aligned fraction, wall seconds, the aligner,
     the timed run's launches by (L, C)). Fails if the run launched no
     kernel of its mode, launched the other mode's, or bypassed the native
     finisher."""
-    align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
+    if warm:
+        align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
     wall, launches, shapes, _streams, finishes, al = counted(
         lambda: align(idx, fq, sam, "cuda", local, flags))
     recs = sam_records(sam)
@@ -746,7 +773,8 @@ def timed_align(phase, idx, fq, sam, local, n_reads, flags=()):
         "reads/s (wall, index "
         f"load included); aligned {100 * frac:.2f}%; K1 launches "
         f"{launches[0]}, K2 launches {launches[1]}; native finisher "
-        f"{'used' if finishes else 'NOT used'} ({finishes} batches)")
+        f"{'used' if finishes else 'NOT used'} ({finishes} batches); walk "
+        f"LF steps {walk.STEPS}")
     log(f"[{phase}]   launches by (L, C): "
         + ", ".join(f"{L}x{C}: {n}" for (L, C), n in sorted(shapes.items())))
     for line in al.timers.render().splitlines():
@@ -1379,6 +1407,357 @@ def run_options(idx, sets, pdata, wd, smi, rng, entries, held):
     return out
 
 
+# Phase 12: the index surface. N_HEAD_12 reads of each of its aligns are
+# held to the port's CPU run; POLY_A_N puts the closed-form index of
+# A^n past 2^31 rows (INT32_ROW_LIMIT), below the uint32 checkpoints'
+# 2^32.
+N_HEAD_12 = 500
+POLY_A_N = (1 << 31) + (1 << 20)
+_HASH = 0x9E3779B1  # the word pattern of (d)'s second gather text
+
+
+def homopolymer_index(n, srate=8, ftab_k=10):
+    """The FM index of the text A^n (codes 0) in closed form, built with
+    numpy: SA[row] = n - row, every BWT char A (the dummy at zoff = n
+    too), occ(A, row) = row, the marked rows those with (n - row) % srate
+    == 0 (a bit pattern that repeats every lcm(srate, 32) rows), the
+    ftab's A^k range [k, n + 1) and every other k-mer's empty at n + 1.
+    Array for array what ``build_index_from_text`` gives for n zeros,
+    without a suffix sort."""
+    from omp_bowtie2_prime_tpu_torch.index.fasta import ReferenceMap
+    from omp_bowtie2_prime_tpu_torch.index.format import (
+        FMIndex, MARK_WORDS_PER_BLOCK, OCC_BLOCK, WORDS_PER_BLOCK)
+
+    nrows = n + 1
+    nblocks = -(-nrows // OCC_BLOCK)
+    starts = np.arange(nblocks, dtype=np.int64) * OCC_BLOCK
+    occ_cp = np.zeros((nblocks, 4), np.int64)
+    occ_cp[:, 0] = starts
+    r0 = n % srate  # the first marked row
+    period = int(np.lcm(srate, 32))
+    pattern = np.packbits((np.arange(period) - r0) % srate == 0,
+                          bitorder="little").view(np.uint32)
+    nwords = nblocks * MARK_WORDS_PER_BLOCK
+    mark_words = np.tile(pattern, -(-nwords // len(pattern)))[:nwords]
+    w = nrows // 32  # no mark at a row past the last
+    if w < nwords:
+        mark_words[w] &= np.uint32((1 << (nrows % 32)) - 1)
+        mark_words[w + 1 :] = 0
+    mark_cp = np.where(starts > r0, (starts - r0 + srate - 1) // srate, 0)
+    top = np.full(4**ftab_k, nrows, np.uint32)
+    top[0] = min(ftab_k, nrows)
+    fchr = np.array([1] + [nrows] * 4, np.int64)
+    return FMIndex(
+        n=n, nrows=nrows, zoff=n, fchr=fchr,
+        bwt_words=np.zeros(nblocks * WORDS_PER_BLOCK, np.uint32),
+        occ_cp=occ_cp, ftab_k=ftab_k, ftab_top=top,
+        ftab_bot=np.full(4**ftab_k, nrows, np.uint32), srate=srate,
+        mark_words=mark_words, mark_cp=mark_cp,
+        sa_sample=(np.arange(n // srate, -1, -1, dtype=np.int64)
+                   * srate).astype(np.uint32),
+        ref_words=np.zeros(-(-n // 16), np.uint32),
+        refmap=ReferenceMap(
+            refnames=["polyA"], reflens=np.array([n], np.int64),
+            frag_joined=np.zeros(1, np.int64),
+            frag_ref=np.zeros(1, np.int64),
+            frag_refid=np.zeros(1, np.int32),
+            frag_len=np.array([n], np.int64)))
+
+
+def poly_a_checks(idx, n, rng, B, split=1 << 31, W=200):
+    """The port's FM ops on the device index of A^n (``idx``, a GpuIndex
+    on any device) against the closed form: occ, occ_all, lf and lf_row
+    at B rows (a third of them at or past ``split`` when the index
+    reaches it, with the rows around 2^31, the sentinel's and the last),
+    resolve_rows there (offset n - row), search_seeds of all-A 22-mers
+    (range [22, n + 1)) and of 22-mers holding a C (empty), and
+    gather_ref_windows of W columns at starts past ``split`` and at the
+    text's end, from the index's text (A, 4 past a window's length) and
+    from a text of the same length whose word w is (w * _HASH) mod 2^32
+    (a wrapped or clamped word index reads the wrong word). Raises on the
+    first difference. Returns (the two gathers' starts, lengths and
+    windows, {check: lanes})."""
+    from omp_bowtie2_prime_tpu_torch.ops import rank, seed_search
+
+    dev = idx.blocks.device
+    nrows = n + 1
+    far = nrows > split
+    k_far = B // 3 if far else 0
+    rows = np.concatenate([rng.integers(0, min(split, nrows), B - k_far),
+                           rng.integers(split, nrows, k_far) if far
+                           else np.zeros(0, np.int64)])
+    edges = [r for r in (0, split - 1, split, (1 << 31) - 2, n, nrows - 1)
+             if 0 <= r < nrows]
+    rows[: len(edges)] = edges
+    rows = torch.from_numpy(rows).to(dev)
+    lanes = {}
+
+    def expect(what, got, want, keys=rows):
+        """keys: the row (or window start) of each lane, for the error."""
+        if not torch.equal(got, want):
+            bad = (got != want).reshape(len(got), -1).any(1).nonzero()[:, 0]
+            i = int(bad[0])
+            raise AssertionError(
+                f"int64 rows: {what} differs from the closed form at "
+                f"{len(bad)} lanes, first at {int(keys[i])}: "
+                f"{got[i].tolist()} vs {want[i].tolist()}")
+        lanes[what] = got.shape[0]
+
+    for c in range(4):
+        cc = torch.full_like(rows, c)
+        expect(f"occ({'ACGT'[c]})", rank.occ(idx, cc, rows),
+               rows if c == 0 else torch.zeros_like(rows))
+        expect(f"lf({'ACGT'[c]})", rank.lf(idx, cc, rows),
+               rows + 1 if c == 0 else torch.full_like(rows, nrows))
+    want_all = torch.zeros((len(rows), 4), dtype=torch.int64, device=dev)
+    want_all[:, 0] = rows
+    expect("occ_all", rank.occ_all(idx, rows), want_all)
+    live = rows != n  # the sentinel's row has no LF of its own
+    expect("lf_row", rank.lf_row(idx, rows[live]), rows[live] + 1,
+           rows[live])
+    off = walk.resolve_rows(idx, rows, torch.ones_like(rows, dtype=torch.bool),
+                            nlive=len(rows))
+    expect("resolve_rows", off, n - rows)
+
+    seeds = torch.zeros((4096, 22), dtype=torch.int64, device=dev)
+    seeds[2048:, 7] = 1  # a C: no occurrence
+    top, bot = seed_search.search_seeds(
+        idx, seeds, torch.ones(4096, dtype=torch.bool, device=dev))
+    expect("search_seeds A^22 top", top[:2048],
+           torch.full_like(top[:2048], 22))
+    expect("search_seeds A^22 bot", bot[:2048],
+           torch.full_like(bot[:2048], nrows))
+    expect("search_seeds with a C", bot[2048:] - top[2048:],
+           torch.zeros_like(top[2048:]))
+
+    nw = idx.ref_words.shape[0]
+    out = {}
+    for kind in ("A^n", "hashed words"):
+        lo = split if far else 0
+        ws = rng.integers(lo, n - W, 48)
+        wl = np.full(48, W, np.int64)
+        wl_end = rng.integers(1, W + 1, 16)
+        ws = torch.from_numpy(np.concatenate([ws, n - wl_end])).to(dev)
+        wl = torch.from_numpy(np.concatenate([wl, wl_end])).to(dev)
+        col = torch.arange(W, device=dev)[None, :]
+        if kind == "A^n":
+            words = idx.ref_words
+            want = torch.zeros((64, W), dtype=torch.int64, device=dev)
+        else:
+            words = (torch.arange(nw, device=dev) * _HASH) & rank.M32
+            p = ws[:, None] + col
+            want = ((((p >> 4) * _HASH) & rank.M32) >> (2 * (p & 15))) & 3
+        want = torch.where(col < wl[:, None], want, 4).to(torch.int8)
+        got = sw.gather_ref_windows(words, ws, wl, W)
+        expect(f"gather_ref_windows {kind}", got, want, ws)
+        out[kind] = (ws, wl, got)
+        del words
+    return out, lanes
+
+
+def run_int64_rows(rng):
+    """Phase 12 (d): the closed-form index of A^n at POLY_A_N (past
+    INT32_ROW_LIMIT rows) built on the host, uploaded through
+    GpuIndex.from_host, its FM ops held to the closed form on the card
+    (``poly_a_checks``, a million rows) and K1 held to its plain version on
+    64 problems whose windows were gathered past 2^31 (reads from those
+    windows with 3 substitutions, random reads against the A^n windows).
+    Frees the index. Returns K1's case row."""
+    from omp_bowtie2_prime_tpu_torch.index.format import (GpuIndex,
+                                                          INT32_ROW_LIMIT)
+
+    n = POLY_A_N
+    t0 = time.perf_counter()
+    fm = homopolymer_index(n, srate=8, ftab_k=12)
+    host_gb = sum(getattr(fm, f).nbytes for f in (
+        "bwt_words", "occ_cp", "mark_words", "mark_cp", "sa_sample",
+        "ref_words", "ftab_top", "ftab_bot")) / 1e9
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    idx = GpuIndex.from_host(fm, "cuda")
+    del fm
+    torch.cuda.synchronize()
+    dev_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    t2 = time.perf_counter()
+    if not idx.nrows > INT32_ROW_LIMIT:
+        raise AssertionError("the A^n index is not past 2^31 rows")
+    log(f"[12] (d) A^n, n = {n}: {idx.nrows} rows (past {INT32_ROW_LIMIT}); "
+        f"host arrays {host_gb:.2f} GB built in {t1 - t0:.1f} s; on the card "
+        f"{dev_gb:.2f} GB ({100 * dev_gb * 1e9 / torch.cuda.get_device_properties(0).total_memory:.1f}% of it), "
+        f"from_host {t2 - t1:.1f} s")
+    wins, lanes = poly_a_checks(idx, n, rng, 1 << 20)
+    log(f"[12] (d) equal to the closed form: " + ", ".join(
+        f"{k} {v}" for k, v in lanes.items()) + " lanes; "
+        f"in {time.perf_counter() - t2:.1f} s")
+    # 48 problems on the hashed text's windows past 2^31 (full length),
+    # 16 on A^n's (8 of them at the text's end, shorter)
+    L, W = 160, 200
+    _, wl_h, refs_h = wins["hashed words"]
+    _, wl_a, refs_a = wins["A^n"]
+    refs = torch.cat([refs_h[:48], refs_a[40:56]]).cpu().numpy()
+    wl = torch.cat([wl_h[:48], wl_a[40:56]]).to(torch.int32)
+    reads = np.full((64, L), 4, np.int8)
+    for b in range(64):
+        if b < 48:
+            off = int(rng.integers(0, W - 150))
+            reads[b, :150] = refs[b, off : off + 150]
+            reads[b, rng.integers(0, 150, 3)] = rng.integers(0, 4, 3)
+        else:
+            reads[b, :150] = rng.integers(0, 4, 150)
+    args = [torch.from_numpy(reads).cuda(),
+            torch.from_numpy(rng.integers(2, 7, (64, L)).astype(
+                np.int32)).cuda(),
+            torch.full((64,), 150, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(refs).cuda(), wl.contiguous()]
+    del idx, wins
+    torch.cuda.empty_cache()
+    return hold_case("K1", rng, "int64 rows", 64, L, W, None, phase=12,
+                     args=args)
+
+
+def same_index(a, b):
+    """The names of the fields in which two FMIndex differ (arrays by
+    dtype and value, the refmap field by field)."""
+    import dataclasses
+
+    bad = []
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray):
+            same = va.dtype == vb.dtype and np.array_equal(va, vb)
+        elif f.name == "refmap":
+            same = va.refnames == vb.refnames and all(
+                np.array_equal(getattr(va, g), getattr(vb, g))
+                for g in ("reflens", "frag_joined", "frag_ref",
+                          "frag_refid", "frag_len"))
+        else:
+            same = va == vb
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def inspect_out(argv):
+    """stdout of one ``inspect`` call of the port's CLI."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["inspect", *argv])
+    return buf.getvalue()
+
+
+def write_head(src, dst, n):
+    """The first n reads of a FASTQ."""
+    with open(src) as f, open(dst, "w") as g:
+        for _ in range(4 * n):
+            g.write(f.readline())
+    return dst
+
+
+def run_index_surface(wd, fa, idx, text, sets, build_s):
+    """Phase 12 (a)-(c): the blockwise build against phase 4's, the .bt2
+    and .bt2l writes, inspect on the .npz and the .bt2 prefix, and four
+    aligns: phase 5's reads on the .bt2 and the .bt2l import and with -o 5
+    on the .npz, phase 6's with --local on the .bt2 import. Each align's
+    records must be its phase's (the .npz runs'), its first N_HEAD_12
+    reads' those of the port's CPU run. Returns {path: (kernel, launches
+    by (L, C))}."""
+    from omp_bowtie2_prime_tpu_torch.index.format import FMIndex
+
+    bw = os.path.join(wd, "genome_bw.npz")
+    t0 = time.perf_counter()
+    cli.main(["build", "--bmaxdivn", "8", "--dcv", "1024", fa, bw])
+    bw_s = time.perf_counter() - t0
+    fm = FMIndex.load(idx)
+    bad = same_index(fm, FMIndex.load(bw))
+    log(f"[12] (a) build --bmaxdivn 8 --dcv 1024: {bw_s:.1f} s against "
+        f"phase 4's in-memory build {build_s:.1f} s (host times of the "
+        f"card's machine, .npz write included); arrays "
+        f"{'all equal to' if not bad else 'DIFFER from'} phase 4's")
+    if bad:
+        raise AssertionError(f"the blockwise build differs in {bad}")
+
+    pre = {}
+    for ext, extra in (("bt2", []), ("bt2l", ["--large-index"])):
+        pre[ext] = os.path.join(wd, f"genome_{ext}")
+        t0 = time.perf_counter()
+        cli.main(["build", "--bt2", *extra, fa, pre[ext]])
+        files = [f"{pre[ext]}.{k}.{ext}"
+                 for k in ("1", "2", "3", "4", "rev.1", "rev.2")]
+        missing = [f for f in files if not os.path.exists(f)]
+        if missing:
+            raise AssertionError(f"build --bt2 {extra} wrote no {missing}")
+        log(f"[12] (b) build --bt2 {' '.join(extra)}: six files, "
+            f"{sum(os.path.getsize(f) for f in files) / 1e6:.1f} MB, in "
+            f"{time.perf_counter() - t0:.1f} s (host)")
+    seq = decode(text)
+    outs = {}
+    for mode in ("", "-s", "-n"):
+        for kind, x in (("npz", idx), ("bt2", pre["bt2"])):
+            t0 = time.perf_counter()
+            outs[kind, mode] = inspect_out([mode, x] if mode else [x])
+            log(f"[12] (b) inspect {mode} on the {kind}: "
+                f"{len(outs[kind, mode])} bytes in "
+                f"{time.perf_counter() - t0:.1f} s")
+    for kind in ("npz", "bt2"):
+        lines = outs[kind, ""].splitlines()
+        if lines[0] != ">synthetic_bacterium" or "".join(lines[1:]) != seq \
+                or max(len(x) for x in lines[1:]) != 60:
+            raise AssertionError(f"inspect on the {kind}: not the FASTA")
+        if outs[kind, "-n"] != "synthetic_bacterium\n":
+            raise AssertionError(f"inspect -n on the {kind}: "
+                                 f"{outs[kind, '-n']!r}")
+    want_s = {"npz": ("SA-Sample\t1 in 8", f"FTab-Chars\t{fm.ftab_k}"),
+              "bt2": ("SA-Sample\t1 in 16", "FTab-Chars\t10")}
+    for kind, (sa_line, ft_line) in want_s.items():
+        lines = outs[kind, "-s"].splitlines()
+        if lines[3:] != [sa_line, ft_line,
+                         f"Sequence-1\tsynthetic_bacterium\t{GENOME_BP}"]:
+            raise AssertionError(f"inspect -s on the {kind}: {lines}")
+    log("[12] (b) inspect: the .npz and the .bt2 prefix give the input's "
+        f"sequence (FASTA, 60 a line) and name; -s: 1 in 8 / {fm.ftab_k} "
+        "against 1 in 16 / 10 (SA sample, ftab width)")
+
+    launched = {}
+    for path, x, mode, flags in (
+            ("index .bt2", pre["bt2"], "e2e", ()),
+            ("index .bt2l", pre["bt2l"], "e2e", ()),
+            ("index .bt2 --local", pre["bt2"], "local", ()),
+            ("index -o 5", idx, "e2e", ("-o", "5"))):
+        local = mode == "local"
+        tag = path.split()[1].strip(".-") + ("_local" if local else "")
+        recs, _flags, _frac, _wall, al, shapes = timed_align(
+            12, x, sets[mode][0], os.path.join(wd, f"gpu_{tag}.sam"), local,
+            N_READS[mode], flags, warm=False)
+        steps = walk.STEPS
+        t = al.timers.acc
+        split = ", ".join(f"{k} {t[k]:.3f} s" for k in (
+            "readBt2", "inverseBwt", "suffixSort", "assembleIndex")
+            if k in t)
+        log(f"[12] {path}: index srate {al.idx.srate}, ftab {al.idx.ftab_k};"
+            f" walk LF steps {steps}; loadIndex {t['loadIndex']:.3f} s"
+            + (f" ({split})" if split else "")
+            + f"; searchResolve {t['searchResolve']:.3f} s")
+        want = sam_records(os.path.join(wd, f"gpu_{mode}.sam"))
+        if recs != want:
+            i = next(i for i, (a, b) in enumerate(zip(recs, want)) if a != b)
+            raise AssertionError(
+                f"{path}: record {i} differs from phase "
+                f"{6 if local else 5}'s: {recs[i][:200]!r} vs "
+                f"{want[i][:200]!r}")
+        log(f"[12] {path}: the {len(recs)} records equal phase "
+            f"{6 if local else 5}'s (.npz, srate 8)")
+        head = write_head(sets[mode][1], os.path.join(wd, f"head_{tag}.fq"),
+                          N_HEAD_12)
+        cpu_identity(12, x, head, os.path.join(wd, f"cpu_{tag}.sam"), local,
+                     recs, N_HEAD_12, flags)
+        launched[path] = ("K2" if local else "K1", shapes)
+    return launched
+
+
 def main():
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1447,7 +1826,7 @@ def main():
 
     wd = tempfile.mkdtemp(prefix="bt2torch_smoke_")
     try:
-        idx, sets, text = make_data(wd)
+        idx, sets, text, build_s = make_data(wd)
         walls, base = {}, {}
         shapes, walls["e2e"] = run_path(5, idx, sets["e2e"], wd, False)
         count("K1", "e2e", shapes)
@@ -1472,6 +1851,11 @@ def main():
         for line, shapes in run_options(idx, sets, pdata, wd, smi, rng,
                                         entries, held).items():
             count("K2" if line == "c" else "K1", f"options ({line})", shapes)
+        for path, (tag, shapes) in run_index_surface(
+                wd, os.path.join(wd, "genome.fa"), idx, text, sets,
+                build_s).items():
+            count(tag, path, shapes)
+        entries["K1"][True]["shapes"].append(run_int64_rows(rng))
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")

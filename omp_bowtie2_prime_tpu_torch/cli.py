@@ -1,14 +1,18 @@
-"""Command-line interface of the port: build / align.
+"""Command-line interface of the port: build / align / inspect.
 
-    python -m omp_bowtie2_prime_tpu_torch.cli build genome.fa idx.npz
-    python -m omp_bowtie2_prime_tpu_torch.cli align -x idx.npz
+    python -m omp_bowtie2_prime_tpu_torch.cli build [options] genome.fa idx
+    python -m omp_bowtie2_prime_tpu_torch.cli inspect [-s|-n] [-a N] idx
+    python -m omp_bowtie2_prime_tpu_torch.cli align -x idx
         {-U reads | -1 m1 -2 m2 | --interleaved pairs.fq | --tab5 f |
          --12 f | --tab6 f | -b reads.bam [--align-paired-reads]}
         -S out.sam [options] [--device cuda] [-p N] [--batch N] [-t]
 
-The same align options, aliases, defaults, warnings and errors as
-omp_bowtie2_prime_tpu.cli, and the same SAM and side files; the index
-files are interchangeable. Options by group:
+The same build, inspect and align options, aliases, defaults, warnings
+and errors as omp_bowtie2_prime_tpu.cli, and the same SAM, side files and
+index files. ``build`` writes the .npz container (in memory, or blockwise
+under --bmax / --bmaxdivn / --dcv) or, with --bt2, bowtie2's six .bt2
+files (.bt2l with --large-index or past 4 Gbp); ``-x`` takes an .npz or a
+.bt2 / .bt2l prefix. Align options by group:
 
   input      -q -f -r --qseq -c -F k:N,i:N -b --align-paired-reads
              --preserve-tags -s -u -5 -3 --trim-to --phred33 --phred64
@@ -27,6 +31,7 @@ files are interchangeable. Options by group:
              -bz2 forms) --no-unal --rg-id --rg --no-hd --no-sq --xeq
              --omit-sec-seq --sam-no-qname-trunc --sam-append-comment
              --refidx --fullref --met-file --met-stderr --met
+  index      -o/--offrate (a sparser SA sample than built)
 
 and the JAX CLI's long aliases and accepted-and-ignored bowtie2 flags.
 Reads up to 1,024 bp align, longer ones come out unaligned; the reference
@@ -34,10 +39,8 @@ may hold runs of N (reads align across short ones). Input is parsed on a
 reader thread and SAM written on a writer thread, in input order, while
 the batches align (models/pipeline.py); ``-p 2`` (or more) adds a second
 aligner over the same index, on its own CUDA stream, and a second align
-worker. ``-o/--offrate`` at align time and the build options are refused
-with the ROADMAP.md item that will bring them, as is a ``.bt2`` index.
-``--device`` names the torch device (default ``cuda``); nothing falls
-back to another device.
+worker. ``--device`` names the torch device (default ``cuda``); nothing
+falls back to another device.
 """
 
 from __future__ import annotations
@@ -50,29 +53,9 @@ import time
 
 import numpy as np
 
-# options of the JAX package's CLI that the port does not take yet,
-# grouped by the ROADMAP.md port-queue item that brings them
-_LATER = {
-    "build and inspect": ("--bt2", "--large-index", "--bmax", "--bmaxdivn",
-                          "--dcv", "--offrate", "-o", "--sa-rate"),
-}
-_LATER_OF = {flag: item for item, flags in _LATER.items() for flag in flags}
-
-
-def _refuse(ap, unknown: list[str]) -> None:
-    """Exit naming the ROADMAP.md item of the first option not ported
-    yet; any other unknown argument is argparse's error, as in the JAX
-    CLI."""
-    for tok in unknown:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_OF:
-            raise SystemExit(f"error: {flag} is not ported yet (ROADMAP.md, "
-                             f"port queue: {_LATER_OF[flag]})")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-
-
-def _load_index(path: str):
+def _load_index(path: str, timers=None):
+    """The FMIndex of an .npz path, or of a prefix: prefix.npz, else the
+    .bt2 / .bt2l files (timers, optional, gets the import's phases)."""
     import os
 
     from .index.format import FMIndex
@@ -82,21 +65,85 @@ def _load_index(path: str):
     if os.path.exists(path + ".npz"):
         return FMIndex.load(path + ".npz")
     if os.path.exists(path + ".1.bt2") or os.path.exists(path + ".1.bt2l"):
-        raise SystemExit("error: .bt2 indexes are not ported yet (ROADMAP.md, "
-                         "port queue: .bt2 I/O)")
-    raise SystemExit(f"error: index not found: {path}(.npz)")
+        from .index.bt2io import load_bt2_index
+
+        return load_bt2_index(path, timers=timers)
+    raise SystemExit(f"error: index not found: {path}(.npz/.1.bt2)")
 
 
 def cmd_build(args):
     from .index.builder import build_index
 
+    if args.ntoa:
+        # --ntoa rewrites ambiguous reference chars to A (ref_read.h) and
+        # would change the index: warned, not honoured
+        print("WARNING: --ntoa not supported (ambiguous characters are "
+              "excluded from the index, the bowtie2 default)",
+              file=sys.stderr)
     t0 = time.time()
-    fm = build_index(args.fasta)
+    if args.bt2:
+        from .index.bt2io import save_bt2
+        from .index.fasta import join_references, parse_fasta
+
+        names, seqs = parse_fasta(args.fasta)
+        joined, refmap = join_references(names, seqs)
+        base = args.out[:-4] if args.out.endswith(".npz") else args.out
+        large = args.large_index or len(joined) >= (1 << 32) - 1
+        save_bt2(joined, refmap, base, large=large,
+                 off_rate=4 if args.offrate is None else args.offrate,
+                 ftab_chars=10 if args.ftab_chars is None
+                 else args.ftab_chars)
+        ext = "bt2l" if large else "bt2"
+        print(f"wrote {base}.[1234].{ext} + .rev.[12].{ext} "
+              f"({len(joined)} bases) in {time.time()-t0:.1f}s",
+              file=sys.stderr)
+        return
+    srate = args.sa_rate if args.offrate is None else (1 << args.offrate)
+    fm = build_index(args.fasta, ftab_k=args.ftab_chars, srate=srate,
+                     bmax=args.bmax, bmaxdivn=args.bmaxdivn, dcv=args.dcv)
     out = args.out if args.out.endswith(".npz") else args.out + ".npz"
     fm.save(out)
     print(f"built index: {fm.n} bases, {fm.nrows} rows, "
           f"{len(fm.refmap.refnames)} refs in {time.time()-t0:.1f}s",
           file=sys.stderr)
+
+
+def cmd_inspect(args):
+    """bowtie2-inspect: the reference sequences as FASTA (from the stored
+    2-bit text and the fragment map), -n the names, -s the summary."""
+    from .utils import dna
+
+    fm = _load_index(args.index)
+    if args.summary:
+        # the fields and order of bowtie2-inspect -s (bt2_inspect.cpp
+        # print_index_summary); the flag words are what bowtie2-build
+        # writes for every index
+        print("Flags\t1")
+        print("Reverse flags\t5")
+        print("2.0-compatible\t1")
+        print(f"SA-Sample\t1 in {fm.srate}")
+        print(f"FTab-Chars\t{fm.ftab_k}")
+        for i, (name, ln) in enumerate(
+                zip(fm.refmap.refnames, fm.refmap.reflens), 1):
+            print(f"Sequence-{i}\t{name}\t{ln}")
+    elif args.names:
+        for name in fm.refmap.refnames:
+            print(name)
+    else:
+        rm = fm.refmap
+        text = dna.unpack_2bit(fm.ref_words, fm.n)
+        for rid, name in enumerate(rm.refnames):
+            seq = np.full(rm.reflens[rid], 4, np.int8)
+            for fi in range(len(rm.frag_joined)):
+                if rm.frag_refid[fi] != rid:
+                    continue
+                s, r, ln = rm.frag_joined[fi], rm.frag_ref[fi], rm.frag_len[fi]
+                seq[r : r + ln] = text[s : s + ln]
+            print(f">{name}")
+            s = dna.decode(seq)
+            w = max(1, args.across)
+            for i in range(0, len(s), w):
+                print(s[i : i + w])
 
 
 def _int_prefix(s: str) -> int:
@@ -515,7 +562,11 @@ def run_align(args):
     _prelude(args)
     timers = PhaseTimers()
     with timers.phase("loadIndex"):
-        fm = _load_index(args.index)
+        fm = _load_index(args.index, timers)
+        if args.offrate is not None and (1 << args.offrate) > fm.srate:
+            # -o: a sparser SA sample than built (the offrate override,
+            # bt2_io.cpp:220-235), only upward, as in the reference
+            fm = fm.subsample_sa(1 << args.offrate)
         sc, opts = align_config(args)
         aligner = TorchAligner(fm, sc, opts, device=args.device,
                                timers=timers)
@@ -807,6 +858,8 @@ def _align_parser(a) -> None:
     a.add_argument("--no-1mm-upfront", action="store_true")
     a.add_argument("--dpad", type=int, default=15,
                    help="gap margin of a DP window on each side")
+    a.add_argument("-o", "--offrate", type=int, default=None,
+                   help="keep the SA sample at 2^o text positions")
     a.add_argument("--gbar", type=int, default=4,
                    help="no gaps within this many read chars of either end")
     a.add_argument("--overhang", action="store_true",
@@ -875,25 +928,110 @@ def _align_parser(a) -> None:
         a.add_argument(flag, help=hide)
 
 
-def parse_args(argv=None):
-    """The command line's namespace; exits on an option not ported yet."""
-    ap = argparse.ArgumentParser(prog="bt2torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    b = sub.add_parser("build", help="build FM index from FASTA")
+def _build_parser(b) -> None:
+    """The build command's options: the JAX CLI's, name for name."""
     b.add_argument("fasta", nargs="+")
     b.add_argument("out")
+    b.add_argument("-t", "--ftabchars", "--ftab-chars", type=int,
+                   default=None, dest="ftab_chars",
+                   help="ftab k-mer length (default: 12 for genomes >= 1 "
+                        "Mbp, 10 below)")
+    b.add_argument("--sa-rate", type=int, default=8,
+                   help="text-position SA sample rate (.npz)")
+    b.add_argument("-o", "--offrate", type=int, default=None,
+                   help="SA sample every 2^o rows (.npz: --sa-rate 2^o)")
+    b.add_argument("--large-index", action="store_true",
+                   help="the 64-bit .bt2l format (bt2_idx.cpp:29-37)")
+    b.add_argument("--bt2", action="store_true",
+                   help="write a bowtie2-compatible .bt2 index set")
+    b.add_argument("--bmax", type=int,
+                   help="blockwise build: at most this many suffixes a block")
+    b.add_argument("--bmaxdivn", type=int,
+                   help="blockwise build: --bmax of the text length / this")
+    b.add_argument("--dcv", type=int,
+                   help="blockwise build: difference-cover period")
+    # accepted for bowtie2-build command lines and ignored, as the JAX
+    # CLI takes them: its sorter's threading and packing knobs, the
+    # endianness and layout knobs of its on-disk sides, debug switches;
+    # --ntoa warns (cmd_build)
+    hide = argparse.SUPPRESS
+    b.add_argument("-f", action="store_true", help=hide)
+    b.add_argument("-a", "--noauto", action="store_true", help=hide)
+    b.add_argument("-p", "--packed", action="store_true", help=hide)
+    b.add_argument("--nodc", action="store_true", help=hide)
+    b.add_argument("-r", "--noref", action="store_true", help=hide)
+    b.add_argument("--threads", type=int, help=hide)
+    b.add_argument("--seed", type=int, help=hide)
+    b.add_argument("-q", "--quiet", action="store_true", help=hide)
+    b.add_argument("-v", "--verbose", action="store_true", help=hide)
+    for flag in ("--big", "--little", "--entiresa", "--noblocks",
+                 "--reverse-each", "--sa", "--justref", "--wrapper-basic",
+                 "-3"):
+        b.add_argument(flag, action="store_true", help=hide)
+    b.add_argument("--bmaxmultsqrt", type=int, help=hide)
+    b.add_argument("--linerate", type=int, help=hide)
+    b.add_argument("--linesperside", type=int, help=hide)
+    b.add_argument("--wrapper", help=hide)
+    b.add_argument("--ntoa", action="store_true", help=hide)
+    b.add_argument("--usage", action="help")
+
+
+def _inspect_parser(i) -> None:
+    """The inspect command's options: the JAX CLI's, name for name."""
+    i.add_argument("index")
+    i.add_argument("-s", "--summary", action="store_true")
+    i.add_argument("-n", "--names", action="store_true")
+    i.add_argument("-a", "--across", type=int, default=60,
+                   help="bases per FASTA line (bt2_inspect.cpp)")
+    # -e/--ebwt-ref: bowtie2-inspect rebuilds the sequences from the BWT
+    # instead of the .3/.4 files; the index here always holds the 2-bit
+    # text (a .bt2 import runs the inverse BWT as it loads), so both
+    # print the same FASTA. -v is accepted.
+    i.add_argument("-e", "--ebwt-ref", action="store_true", dest="ebwt_ref")
+    i.add_argument("-v", "--verbose", action="store_true")
+
+
+def parser() -> argparse.ArgumentParser:
+    """The port's command line: build, align and inspect."""
+    ap = argparse.ArgumentParser(prog="bt2torch")
+    ap.add_argument("--version", action="version",
+                    version="bt2torch 0.1 (bowtie2 2.5.4-compatible, "
+                            "PyTorch/CUDA)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    _build_parser(sub.add_parser("build", help="build FM index from FASTA"))
     _align_parser(sub.add_parser("align", help="align reads or pairs, "
                                                "emit SAM"))
-    args, unknown = ap.parse_known_args(argv)
-    _refuse(ap, unknown)
-    return args
+    _inspect_parser(sub.add_parser("inspect", help="inspect index"))
+    return ap
+
+
+def parse_args(argv=None):
+    """The command line's namespace."""
+    return parser().parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.cmd == "build":
         return cmd_build(args)
+    if args.cmd == "inspect":
+        return cmd_inspect(args)
     return run_align(args)
+
+
+def main_align(argv=None):
+    """``bt2torch-align``, the ``bowtie2`` analog: align options alone."""
+    return main(["align", *(sys.argv[1:] if argv is None else argv)])
+
+
+def main_build(argv=None):
+    """``bt2torch-build``, the ``bowtie2-build`` analog."""
+    return main(["build", *(sys.argv[1:] if argv is None else argv)])
+
+
+def main_inspect(argv=None):
+    """``bt2torch-inspect``, the ``bowtie2-inspect`` analog."""
+    return main(["inspect", *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":

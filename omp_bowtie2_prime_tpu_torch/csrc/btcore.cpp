@@ -7,9 +7,12 @@
 // type classification, LMS induced sorting, substring naming and recursion
 // on the reduced problem. Exposed via a C ABI for ctypes.
 //
-// The port's copy of the SA-IS, BWT and alignment-finisher parts of the
-// JAX package's csrc/sais.cpp (host code, not a kernel of the card).
-// Build: g++ -O3 -shared -fPIC btcore.cpp -o libbtcore.so (native.py does it)
+// The port's copy of the SA-IS, BWT, inverse-BWT and alignment-finisher
+// parts of the JAX package's csrc/sais.cpp (host code, not a kernel of
+// the card). The blockwise sorter is csrc/blockwise.cpp, linked into the
+// same library.
+// Build: g++ -O3 -shared -fPIC btcore.cpp blockwise.cpp -o libbtcore.so
+// (native.py does it)
 
 #include <cstdint>
 #include <cstring>
@@ -231,6 +234,53 @@ int64_t bt_bwt_from_sa_i64(uint8_t* out, const uint8_t* text,
 }
 
 }  // extern "C"
+
+// Inverse BWT: reconstruct the text from BWT codes (0..3, with the
+// sentinel's slot at `zoff` stored as 0, bowtie2's "$ represented as A",
+// bt2_idx.h:1819-1826). Imports a .bt2 index by recovering the joined
+// text (the LF walk bowtie2-inspect performs, bt2_inspect.cpp).
+//
+// conv selects the sentinel ordering:
+//   0 = sentinel sorts FIRST (the .npz layout: $-suffix at row 0,
+//       fchr[0] == 1)
+//   1 = sentinel sorts LAST (bowtie2's .bt2 layout: the $-only suffix is
+//       the final row, fchr[0] == 0)
+// bwt: n_rows codes; text out: n_rows-1 codes. Returns 0 on success.
+template <typename I>
+static int ibwt_core(const uint8_t* bwt, uint8_t* text, I n_rows, I zoff,
+                     int conv) {
+    std::vector<I> occ(n_rows);
+    I cnt[4] = {0, 0, 0, 0};
+    for (I i = 0; i < n_rows; i++) {
+        uint8_t c = bwt[i];
+        if (c > 3) return 2;
+        occ[i] = cnt[c];
+        if (i != zoff) cnt[c]++;
+    }
+    I fchr[5];
+    fchr[0] = conv == 0 ? 1 : 0;  // sentinel-first row space starts at 1
+    for (int c = 0; c < 4; c++) fchr[c + 1] = fchr[c] + cnt[c];
+    if (fchr[4] != (conv == 0 ? n_rows : n_rows - 1)) return 3;
+    // start at the $-only suffix's row: its BWT char is text[n-1]
+    I r = conv == 0 ? 0 : n_rows - 1;
+    for (I k = n_rows - 1; k-- > 0;) {
+        if (r == zoff) return 4;  // hit $ too early
+        uint8_t c = bwt[r];
+        text[k] = c;
+        r = fchr[c] + occ[r];
+    }
+    return r == zoff ? 0 : 5;
+}
+
+extern "C" int bt_ibwt_i32(const uint8_t* bwt, uint8_t* text, int32_t n_rows,
+                           int32_t zoff, int conv) {
+    return ibwt_core<int32_t>(bwt, text, n_rows, zoff, conv);
+}
+
+extern "C" int bt_ibwt_i64(const uint8_t* bwt, uint8_t* text, int64_t n_rows,
+                           int64_t zoff, int conv) {
+    return ibwt_core<int64_t>(bwt, text, n_rows, zoff, conv);
+}
 
 // ---------------------------------------------------------------------------
 // Batched alignment finisher: turn device backtrace op strings into CIGAR

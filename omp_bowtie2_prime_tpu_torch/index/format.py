@@ -7,6 +7,14 @@ block record, the 64-per-row ftab and the 128-per-row SA sample), so the
 two compare one to one. torch has no unsigned 32-bit arithmetic worth the
 name (no logical right shift, no popcount), so every uint32 word is held
 as a non-negative int64 on the device.
+
+Rows are int64 everywhere in the port (ops/rank.py, ops/walk.py,
+ops/seed_search.py, ops/sw.py), so an index past 2^31 rows (the .bt2l
+scale, bt2_idx.cpp:29-37) needs no switch. What is stored as uint32 wraps
+at 2^32 rows: the host's ftab_top/ftab_bot and sa_sample, and the device
+record's occ and mark-rank checkpoints (``DEV_OCC``, ``DEV_MARKCP``), cast
+from the int64 occ_cp / mark_cp in ``GpuIndex.from_host``, which refuses
+such an index, as the JAX package's DeviceIndex.from_host does.
 """
 
 from __future__ import annotations
@@ -34,8 +42,11 @@ DEV_BLOCK_U32 = 128
 DEV_FTAB_PER_ROW = 64  # ftab row q//64: top(q) at lane q%64, bot at 64+q%64
 DEV_SA_PER_ROW = 128
 
-# rows at or past this need the int64 (.bt2l-scale) path
+# rows at or past this are the JAX package's int64 (.bt2l-scale) path;
+# the port computes rows in int64 on both sides of it
 INT32_ROW_LIMIT = (1 << 31) - 2
+# the uint32 checkpoints and samples hold rows below this
+ROW_LIMIT = 1 << 32
 
 
 @dataclasses.dataclass
@@ -88,6 +99,32 @@ class FMIndex:
         arrs = {k: z[k] for k in z.files if not k.startswith("__")}
         return cls(refmap=refmap, **scalars, **arrs)
 
+    def subsample_sa(self, new_srate: int) -> "FMIndex":
+        """Load-time offrate override (-o at align time, bt2_io.cpp:
+        220-235): keep only the SA samples at text positions = 0 mod
+        new_srate. A sparser resident sample; walks bounded by new_srate
+        instead of srate."""
+        if new_srate <= self.srate:
+            return self
+        if new_srate % self.srate:
+            raise SystemExit(
+                "error: -o override must be a multiple of the built "
+                f"SA rate ({self.srate})"
+            )
+        keep = (self.sa_sample.astype(np.int64) % new_srate) == 0
+        bits = np.unpackbits(self.mark_words.view(np.uint8),
+                             bitorder="little")
+        pos = np.flatnonzero(bits)  # marked rows, row order
+        bits[pos[~keep]] = 0
+        mark_words = np.packbits(bits, bitorder="little").view(np.uint32)
+        per_block = bits.reshape(self.nblocks, OCC_BLOCK).sum(axis=1)
+        mark_cp = np.concatenate(
+            [[0], np.cumsum(per_block, dtype=np.int64)[:-1]])
+        return dataclasses.replace(
+            self, srate=new_srate, mark_words=mark_words, mark_cp=mark_cp,
+            sa_sample=self.sa_sample[keep],
+        )
+
 
 class _RefmapUnpickler(pickle.Unpickler):
     """Loads a refmap pickled by either package into this package's
@@ -134,11 +171,11 @@ class GpuIndex:
 
     @classmethod
     def from_host(cls, fm: FMIndex, device) -> "GpuIndex":
-        if fm.nrows >= INT32_ROW_LIMIT:
-            raise NotImplementedError(
-                "indexes of 2^31-2 rows or more need the int64 row path "
-                "(ROADMAP.md, port queue: int64-scale indexes)"
-            )
+        """Upload ``fm`` in the device layout. Refuses 2^32 rows or more
+        (the block checkpoints are uint32)."""
+        if fm.nrows >= ROW_LIMIT:
+            raise ValueError(f"an index of {fm.nrows} rows: the block "
+                             "checkpoints are uint32 (fewer than 2^32 rows)")
         device = torch.device(device)
         # 8 host 128-row blocks per 1024-row device record; checkpoints
         # at a record start are the host checkpoints of its first block

@@ -1,13 +1,15 @@
 """Native (C++) host components, loaded via ctypes.
 
-Counterpart of omp_bowtie2_prime_tpu/native.py for what the port uses:
-SA-IS suffix sorting and the BWT pass for index construction, and the
-batched CIGAR/MD/stats finisher (csrc/btcore.cpp). This is host code, not
-a kernel of the card. The shared library is compiled with g++ at first
-use into ``_build/`` beside the package (git-ignored), under a name that
-carries a hash of the source, so an edited source rebuilds. Without a
-compiler every function here returns None and the callers take their
-numpy / Python paths.
+Counterpart of omp_bowtie2_prime_tpu/native.py: SA-IS suffix sorting,
+the BWT pass and the inverse BWT for index construction and .bt2 import,
+and the batched CIGAR/MD/stats finisher (csrc/btcore.cpp); the blockwise
+build's difference-cover ranking and bucket sort (csrc/blockwise.cpp).
+This is host code, not a kernel of the card. The shared library is
+compiled with g++ from both sources at first use into ``_build/`` beside
+the package (git-ignored), under a name that carries a hash of the
+sources, so an edit to either rebuilds. Without a compiler the functions
+here return None and the callers take their numpy / Python paths, except
+``inverse_bwt`` and the blockwise sort, which have none and raise.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_PKG, "csrc", "btcore.cpp")
+_SRCS = [os.path.join(_PKG, "csrc", name)
+         for name in ("btcore.cpp", "blockwise.cpp")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
@@ -32,16 +35,19 @@ _calls_lock = threading.Lock()  # align workers finish batches at once
 
 
 def _build() -> str | None:
-    if not os.path.exists(_SRC):
+    if not all(os.path.exists(src) for src in _SRCS):
         return None
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
     path = os.path.join(_BUILD_DIR, f"libbtcore_{tag}.so")
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, *_SRCS]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except (subprocess.SubprocessError, FileNotFoundError):
@@ -70,6 +76,22 @@ def get_lib():
         lib.bt_bwt_from_sa_i32.argtypes = [P] * 3 + [ctypes.c_int32]
         lib.bt_bwt_from_sa_i64.restype = ctypes.c_int64
         lib.bt_bwt_from_sa_i64.argtypes = [P] * 3 + [ctypes.c_int64]
+        lib.bt_ibwt_i32.restype = ctypes.c_int
+        lib.bt_ibwt_i32.argtypes = [P, P, ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int]
+        lib.bt_ibwt_i64.restype = ctypes.c_int
+        lib.bt_ibwt_i64.argtypes = [P, P, ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int]
+        lib.bt_dc_ranks_i64.restype = ctypes.c_int
+        lib.bt_dc_ranks_i64.argtypes = [
+            P, ctypes.c_int64, ctypes.c_int64, P, ctypes.c_int32,
+            P, ctypes.c_int64, P,
+        ]
+        lib.bt_dc_sort_i64.restype = ctypes.c_int
+        lib.bt_dc_sort_i64.argtypes = [
+            P, ctypes.c_int64, ctypes.c_int64, P, ctypes.c_int32,
+            P, ctypes.c_int64, P, P, ctypes.c_int64,
+        ]
         lib.bt_finish_batch.restype = ctypes.c_int64
         lib.bt_finish_batch.argtypes = [
             P, ctypes.c_int64, ctypes.c_int64, P, P,
@@ -175,3 +197,27 @@ def suffix_array_sais(text: np.ndarray) -> np.ndarray | None:
     if rc != 0:
         return None
     return sa  # native dtype; upconverting 8B/row doubles build RAM traffic
+
+
+def inverse_bwt(bwt: np.ndarray, zoff: int,
+                sentinel_last: bool = False) -> np.ndarray:
+    """The text of BWT codes (the sentinel's slot at zoff stored as 0).
+    sentinel_last selects bowtie2's $-sorts-last row convention (see
+    csrc/btcore.cpp ibwt_core). Raises if the native library is
+    unavailable or the BWT is invalid."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native btcore unavailable for inverse BWT")
+    bwt = np.ascontiguousarray(bwt, np.uint8)
+    n_rows = len(bwt)
+    conv = 1 if sentinel_last else 0
+    text = np.empty(n_rows - 1, np.uint8)
+    if n_rows < (1 << 31):
+        rc = lib.bt_ibwt_i32(bwt.ctypes.data, text.ctypes.data,
+                             np.int32(n_rows), np.int32(zoff), conv)
+    else:
+        rc = lib.bt_ibwt_i64(bwt.ctypes.data, text.ctypes.data,
+                             np.int64(n_rows), np.int64(zoff), conv)
+    if rc != 0:
+        raise ValueError(f"inverse BWT failed (code {rc})")
+    return text

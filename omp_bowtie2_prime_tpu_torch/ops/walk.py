@@ -2,14 +2,21 @@
 
 Counterpart of omp_bowtie2_prime_tpu/ops/walk.py. The index samples by
 text position, so every walk ends within srate-1 LF steps: a fixed
-srate-iteration masked loop over the lanes.
+srate-iteration masked loop over the lanes. ``STEPS`` counts those LF
+steps (each over a tile of lanes: a dozen small torch launches), so a run
+can report what a sparser sample (-o, a .bt2 import's srate 16) costs.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import rank
+
+STEPS = 0
+_count_lock = threading.Lock()  # align workers walk at once at -p 2
 
 
 def resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
@@ -29,6 +36,9 @@ def resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
             t += 1
         return out
 
+    global STEPS
+    with _count_lock:
+        STEPS += idx.srate
     row = rows.to(torch.int64)
     steps = torch.zeros_like(row)
     done = torch.zeros(B, dtype=torch.bool, device=rows.device)

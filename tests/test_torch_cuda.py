@@ -727,3 +727,72 @@ def test_option_lines_on_the_card_equal_cpu(cuda, tmp_path, case):
     assert sams["cuda"] == sams["cpu"]
     assert any(not int(ln.split("\t")[1]) & 4 for ln in sams["cpu"]
                if not ln.startswith("@"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [".bt2", ".bt2l", "-o 5", ".bt2 --local"])
+def test_index_imports_on_the_card_equal_the_npz_run(cuda, tmp_path, case):
+    """align -x on a .bt2 / .bt2l import (ftab 10, srate 16) and -o 5 on
+    the .npz (srate 32) write on the card the records of the .npz run on
+    the card (srate 8), and those of the same command on the CPU; the
+    walk took srate steps a tile."""
+    from omp_bowtie2_prime_tpu_torch import cli
+    from omp_bowtie2_prime_tpu_torch.ops import walk
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    fm, _pairs = _paired_setup()
+    with open(tmp_path / "g.fa", "w") as f:
+        f.write(">chrP\n" + dna.decode(dna.unpack_2bit(fm.ref_words, fm.n))
+                + "\n")
+    _write_fastq(tmp_path / "r.fq", _single_reads(fm, 300, 9))
+    idx = str(tmp_path / "g.npz")
+    cli.main(["build", str(tmp_path / "g.fa"), idx])
+    kind = case.split()[0]
+    local = ["--local"] if "--local" in case else []
+    if kind == "-o":
+        x, flags, srate = idx, ["-o", "5"], 32
+    else:
+        # a prefix of its own: "g" would load g.npz first
+        x, flags, srate = str(tmp_path / "b"), [], 16
+        cli.main(["build", "--bt2", *(["--large-index"] if kind == ".bt2l"
+                                      else []), str(tmp_path / "g.fa"), x])
+
+    def records(x, dev, flags):
+        sam = tmp_path / f"{dev}.sam"
+        walk.STEPS = 0
+        al = cli.main(["align", "-x", x, "-U", str(tmp_path / "r.fq"), "-S",
+                       str(sam), "--device", dev, *flags, *local])
+        with open(sam) as f:
+            return ([ln for ln in f.read().splitlines()
+                     if not ln.startswith("@")], al.idx.srate, walk.STEPS)
+
+    npz, srate_npz, _ = records(idx, "cuda", [])
+    got, srate_got, steps = records(x, "cuda", flags)
+    cpu, _, _ = records(x, "cpu", flags)
+    assert (srate_npz, srate_got) == (8, srate)
+    assert steps > 0 and steps % srate == 0
+    assert got == npz == cpu and len(got) == 300
+
+
+@pytest.mark.cuda
+def test_poly_a_past_2_31_rows_on_the_card(cuda):
+    """The closed-form index of A^n just past 2^31 rows (chip_smoke.py
+    phase 12 (d)'s form, at 65,536 query rows instead of a million):
+    every FM op past 2^31 equals the closed form on the card."""
+    import importlib.util
+
+    from omp_bowtie2_prime_tpu_torch.index.format import (GpuIndex,
+                                                          INT32_ROW_LIMIT)
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    n = (1 << 31) + 4096
+    idx = GpuIndex.from_host(chip_smoke.homopolymer_index(n, 8, 12), "cuda")
+    assert idx.nrows > INT32_ROW_LIMIT
+    _wins, lanes = chip_smoke.poly_a_checks(idx, n, np.random.default_rng(3),
+                                            1 << 16)
+    assert lanes["resolve_rows"] == 1 << 16
+    del idx, _wins
+    torch.cuda.empty_cache()

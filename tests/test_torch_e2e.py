@@ -163,20 +163,63 @@ def test_align_sam_byte_identical(genome, seed):
         assert "table overflowed" in err
 
 
-def test_port_cli_refuses_unported_options(tmp_path):
-    """What the port still refuses: the build options and -o/--offrate
-    (ROADMAP.md item "build and inspect") and a .bt2 index (".bt2 I/O")."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    (tmp_path / "b.1.bt2").write_bytes(b"")
-    for x, extra, item in (("i.npz", ["--large-index"], "build and inspect"),
-                           ("i.npz", ["-o", "5"], "build and inspect"),
-                           ("b", [], ".bt2 I/O")):
-        r = subprocess.run(
-            [sys.executable, "-m", "omp_bowtie2_prime_tpu_torch.cli", "align",
-             "-x", x, "-U", "r.fq", *extra], cwd=tmp_path, env=env,
-            capture_output=True, text=True, timeout=120)
-        assert r.returncode != 0
-        assert "ROADMAP.md" in r.stderr and item in r.stderr, r.stderr
+def _parser_tables(ap):
+    """{subcommand (or "top"): {option string (or positional dest): (dest,
+    action kind, nargs, const, type name, required)}} of a parser."""
+    import argparse
+
+    def table(p):
+        return {s: (a.dest, type(a).__name__, a.nargs, a.const,
+                    getattr(a.type, "__name__", a.type), a.required)
+                for a in p._actions for s in (a.option_strings or [a.dest])
+                if not isinstance(a, argparse._SubParsersAction)}
+
+    sub = next(a for a in ap._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {"top": table(ap),
+            **{name: table(p) for name, p in sub.choices.items()}}
+
+
+def test_port_cli_refuses_unported_options(tmp_path, monkeypatch):
+    """The port refuses no option of the JAX CLI: its build, align and
+    inspect parsers take every option string of the JAX package's, each
+    to the same destination with the same action, arity, constant, type
+    and requiredness (align adds only --device), and give the same
+    defaults; an option neither has is argparse's error in both."""
+    import argparse
+
+    from omp_bowtie2_prime_tpu import cli as jcli
+    from omp_bowtie2_prime_tpu_torch import cli as tcli
+
+    class Parsed(Exception):
+        pass
+
+    def grab(self, args=None, namespace=None):
+        raise Parsed(self)
+
+    with monkeypatch.context() as m:  # the JAX parser, as its main builds it
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Parsed) as e:
+            jcli.main([])
+    jap, tap = e.value.args[0], tcli.parser()
+    want, got = _parser_tables(jap), _parser_tables(tap)
+    assert set(got) == set(want) == {"top", "build", "align", "inspect"}
+    for cmd in want:
+        extra = {"--device"} if cmd == "align" else set()
+        assert set(got[cmd]) == set(want[cmd]) | extra, cmd
+        for opt, row in want[cmd].items():
+            assert got[cmd][opt] == row, (cmd, opt)
+    for argv in (["build", "g.fa", "out"], ["inspect", "idx"],
+                 ["align", "-x", "i", "-U", "r.fq"]):
+        jns = vars(jap.parse_args(argv))
+        tns = vars(tap.parse_args(argv))
+        jns.pop("fn")
+        tns.pop("device", None)
+        assert tns == jns, argv[0]
+    for main in (jcli.main, tcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["align", "-x", "i", "-U", "r.fq", "--no-such-option"])
+        assert e.value.code == 2
 
 
 @pytest.mark.parametrize("khits,allhits", [(3, False), (1, True)])

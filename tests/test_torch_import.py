@@ -1,6 +1,7 @@
 """The port stands alone: it imports and aligns, end to end, in local
-mode and in pairs, with jax, flax and the whole JAX package blocked, and
-no source file of it names that package in an import."""
+mode and in pairs, and writes, reads back and builds blockwise an index,
+with jax, flax and the whole JAX package blocked, and no source file of
+it names that package in an import."""
 
 import os
 import re
@@ -68,6 +69,17 @@ ok = sum(r.cat == "concord" and r.tlen1 == 350 for r in res)
 assert ok == 10, ok
 print("PAIRED", ok)
 
+import tempfile
+from omp_bowtie2_prime_tpu_torch.index.blockwise import build_index_blockwise
+from omp_bowtie2_prime_tpu_torch.index.bt2io import load_bt2_index, save_bt2
+with tempfile.TemporaryDirectory() as d:
+    save_bt2(joined, refmap, d + "/g")
+    back = load_bt2_index(d + "/g")
+assert np.array_equal(dna.unpack_2bit(back.ref_words, back.n), joined)
+bw = build_index_blockwise(joined, refmap, bmax=5000, dcv=64)
+assert np.array_equal(bw.bwt_words, fm.bwt_words)
+print("INDEX", back.n)
+
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m == "jax" or m.startswith(("jax.", "flax"))
     or m == "omp_bowtie2_prime_tpu"
@@ -84,6 +96,7 @@ def test_port_runs_without_jax_and_flax():
     assert "ALIGNED 50" in r.stdout
     assert "LOCAL 50" in r.stdout
     assert "PAIRED 10" in r.stdout
+    assert "INDEX 30000" in r.stdout
 
 
 def test_no_source_imports_the_jax_package():

@@ -408,6 +408,40 @@ def test_native_finish_batch(local):
     assert (g2[2][:, 6] == -1).any()
 
 
+@pytest.mark.parametrize("n", [1, 17, 5000])
+def test_native_inverse_bwt_and_dc_sort(n):
+    """bt_ibwt (both sentinel conventions) and the blockwise build's
+    difference-cover ranking (bt_dc_ranks) and bucket sort (bt_dc_sort)
+    of the port's library against the JAX package's."""
+    from omp_bowtie2_prime_tpu.index import blockwise as jbw
+    from omp_bowtie2_prime_tpu_torch.index import blockwise as tbw
+
+    rng = np.random.default_rng(n)
+    text = rng.integers(0, 4, n).astype(np.int8)
+    text[n // 3 : n // 3 + n // 5] = 1  # a homopolymer run
+    sa = tsa.suffix_array(text)
+    bwt, zoff = tsa.bwt_from_sa(text, sa)
+    for last in (False, True):
+        if last:  # bowtie2's $-sorts-last rows: sort text+[5]
+            key = np.concatenate([text, [5]]).astype(np.int64)
+            rows = sorted(range(n + 1), key=lambda i: key[i:].tolist())
+            bwt = np.array([text[i - 1] if i else 0 for i in rows], np.uint8)
+            zoff = rows.index(0)
+        got = tnative.inverse_bwt(bwt, zoff, sentinel_last=last)
+        np.testing.assert_array_equal(
+            got, jnative.inverse_bwt(bwt, zoff, sentinel_last=last))
+        np.testing.assert_array_equal(got, text.view(np.uint8))
+    with pytest.raises(ValueError, match="inverse BWT failed"):
+        tnative.inverse_bwt(np.full(n + 1, 7, np.uint8), zoff)
+    for v in (4, 64):
+        D = tbw.difference_cover(v)
+        np.testing.assert_array_equal(tbw.dc_sample_ranks(text, v, D),
+                                      jbw.dc_sample_ranks(text, v, D))
+        got = list(tbw.sa_blocks(text, bmax=max(8, n // 3), dcv=v))
+        np.testing.assert_array_equal(np.concatenate(got),
+                                      np.asarray(sa, np.int64))
+
+
 def test_native_library_builds_beside_the_port():
     """The port's library comes from its own source, into its own
     git-ignored build directory."""
@@ -418,3 +452,7 @@ def test_native_library_builds_beside_the_port():
                                     "_build"))
     assert any(f.startswith("libbtcore_") and f.endswith(".so")
                for f in built)
+    # one library from both sources, the hash over both
+    assert tnative._build() is not None
+    assert [os.path.basename(s) for s in tnative._SRCS] == [
+        "btcore.cpp", "blockwise.cpp"]
