@@ -6,12 +6,13 @@
 Drives the port's main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
 ``align -U`` end to end, ``align -U --local``, both again on long reads
 against a reference with N runs, ``align -1 -2`` paired, end to end and
-``--local``, and the index surface: the blockwise and .bt2 builds,
+``--local``, the index surface: the blockwise and .bt2 builds,
 ``inspect``, aligns on .bt2 / .bt2l imports and with ``-o``, an index
-past 2^31 rows) at a real size: two 4.6 Mbp genomes (a bacterium's size),
-25,000 simulated reads for the end-to-end path, 50,000 for the local one,
-10,000 of 100 to 1,000 bp for the long one and 20,000 pairs of 2 x 150 bp
-for the paired one.
+past 2^31 rows, and the multi-GPU API: a data mesh and a row-sharded
+index over ranks of their own) at a real size: two 4.6 Mbp genomes (a
+bacterium's size), 25,000 simulated reads for the end-to-end path,
+50,000 for the local one, 10,000 of 100 to 1,000 bp for the long one and
+20,000 pairs of 2 x 150 bp for the paired one.
 Phases, one line each, stamped with the seconds since the start:
 
   1. the device: its name and power limit (nvidia-smi);
@@ -92,6 +93,21 @@ Phases, one line each, stamped with the seconds since the start:
      card at a million rows, a third of them past 2^31, equal to the
      closed form, and K1 on windows gathered there equal to its plain
      version; the index is freed after it.
+ 13. multi-GPU (``parallel/``), each part's ranks fresh processes of this
+     script (``--rank13``) on cuda:0 through ``TorchAligner(mesh=)``, each
+     mesh's communicators set up before its align's clock starts: (a)
+     NCCL at one rank from tcp://127.0.0.1, after an untimed align, a
+     data mesh and a tp mesh (model=1: the index sharded into one shard,
+     a reduce a record gather) on phase 5's reads; (b) gloo, two ranks sharing the card
+     (NCCL takes one rank a GPU): a tp mesh (model=2) on phase 5's reads
+     and on phase 6's with --local, a data mesh (data=2) on phase 5's.
+     Every rank's records equal its phase's; where the work is replicated
+     (one rank, a model axis) its launches by (L, C) are the phase's; a
+     tp run reduced on the aligner's stream and its shard holds
+     ``tp_hbm_per_device``'s bytes; reads/s, REDUCES and tpReduce. (c)
+     phase 12 (d)'s A^n index sharded over two gloo ranks: each rank's
+     bytes on the card, and the FM checks of (d) at 2^20 rows across the
+     shard boundary and past 2^31 through the reduces.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -857,6 +873,8 @@ def stream_align(idx, fq, sam):
     reads of ``fq`` in the CLI's batches with its default options, the
     records written as the CLI writes them. Returns the first aligner."""
     from omp_bowtie2_prime_tpu_torch.index.format import FMIndex
+    import torch.distributed as dist
+
     from omp_bowtie2_prime_tpu_torch.io.fastq import (batch_iterator,
                                                       open_reads)
     from omp_bowtie2_prime_tpu_torch.io.sam import SamWriter
@@ -1466,28 +1484,32 @@ def homopolymer_index(n, srate=8, ftab_k=10):
 
 def poly_a_checks(idx, n, rng, B, split=1 << 31, W=200):
     """The port's FM ops on the device index of A^n (``idx``, a GpuIndex
-    on any device) against the closed form: occ, occ_all, lf and lf_row
-    at B rows (a third of them at or past ``split`` when the index
-    reaches it, with the rows around 2^31, the sentinel's and the last),
-    resolve_rows there (offset n - row), search_seeds of all-A 22-mers
-    (range [22, n + 1)) and of 22-mers holding a C (empty), and
-    gather_ref_windows of W columns at starts past ``split`` and at the
-    text's end, from the index's text (A, 4 past a window's length) and
-    from a text of the same length whose word w is (w * _HASH) mod 2^32
-    (a wrapped or clamped word index reads the wrong word). Raises on the
-    first difference. Returns (the two gathers' starts, lengths and
-    windows, {check: lanes})."""
+    on any device, whole or sharded) against the closed form: occ,
+    occ_all, lf and lf_row at B rows (a third of them at or past each
+    ``split``, a row or a tuple of rows, that the index reaches, up to the
+    next; the rest below the first; with the rows around each split and
+    2^31, the sentinel's and the last), resolve_rows there (offset n -
+    row), search_seeds of all-A 22-mers (range [22, n + 1)) and of 22-mers
+    holding a C (empty), and gather_ref_windows of W columns at starts past
+    the last split and at the text's end, from the index's text (A, 4 past
+    a window's length) and from a text of the same length whose word w is
+    (w * _HASH) mod 2^32 (a wrapped or clamped word index reads the wrong
+    word). Raises on the first difference. Returns (the two gathers'
+    starts, lengths and windows, {check: lanes})."""
     from omp_bowtie2_prime_tpu_torch.ops import rank, seed_search
 
     dev = idx.blocks.device
     nrows = n + 1
-    far = nrows > split
-    k_far = B // 3 if far else 0
-    rows = np.concatenate([rng.integers(0, min(split, nrows), B - k_far),
-                           rng.integers(split, nrows, k_far) if far
-                           else np.zeros(0, np.int64)])
-    edges = [r for r in (0, split - 1, split, (1 << 31) - 2, n, nrows - 1)
-             if 0 <= r < nrows]
+    splits = [s for s in (split if isinstance(split, tuple) else (split,))
+              if s < nrows]
+    k_far = B // 3
+    ends = splits[1:] + [nrows]
+    rows = np.concatenate(
+        [rng.integers(0, splits[0] if splits else nrows,
+                      B - k_far * len(splits))]
+        + [rng.integers(s, e, k_far) for s, e in zip(splits, ends)])
+    edges = [r for r in (0, *(x for s in splits for x in (s - 1, s)),
+                         (1 << 31) - 2, n, nrows - 1) if 0 <= r < nrows]
     rows[: len(edges)] = edges
     rows = torch.from_numpy(rows).to(dev)
     lanes = {}
@@ -1533,7 +1555,7 @@ def poly_a_checks(idx, n, rng, B, split=1 << 31, W=200):
     nw = idx.ref_words.shape[0]
     out = {}
     for kind in ("A^n", "hashed words"):
-        lo = split if far else 0
+        lo = splits[-1] if splits else 0
         ws = rng.integers(lo, n - W, 48)
         wl = np.full(48, W, np.int64)
         wl_end = rng.integers(1, W + 1, 16)
@@ -1758,6 +1780,304 @@ def run_index_surface(wd, fa, idx, text, sets, build_s):
     return launched
 
 
+# Phase 13: multi-GPU (omp_bowtie2_prime_tpu_torch/parallel/). Its ranks
+# are fresh interpreters of this script (``--rank13 SPEC RANK``), all on
+# cuda:0: NCCL at one rank, gloo where two ranks share the card (NCCL
+# takes one rank a GPU; gloo stages each reduce through the host).
+RANK_TIMEOUT = 420  # seconds a part's ranks may take; killed past it
+N_ROWS_13 = 1 << 20  # part (c)'s FM-op lanes, a check
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rank13_align(run, world, rank, wd, device):
+    """One align of a rank on its mesh ("data": make_mesh, "tp":
+    make_tp_mesh(world)) on its card ``device``, as ``align -x -U -S`` runs
+    it (the CLI's configuration, batches and records) but through
+    ``TorchAligner(..., mesh=)``: every count set to 0 just before, read
+    just after. Returns the rank's report."""
+    import torch.distributed as dist
+
+    from omp_bowtie2_prime_tpu_torch.io.fastq import (batch_iterator,
+                                                      open_reads)
+    from omp_bowtie2_prime_tpu_torch.io.sam import SamWriter
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.parallel.mesh import make_mesh
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
+        make_tp_mesh, tp_hbm_per_device)
+    from omp_bowtie2_prime_tpu_torch.utils.metrics import PhaseTimers
+
+    sam = os.path.join(wd, f"p13_{run['tag'].replace(' ', '_')}_r{rank}.sam")
+    args = cli.parse_args(["align", "-x", run["idx"], "-U", run["fq"], "-S",
+                           sam, "--device", "cuda"]
+                          + (["--local"] if run["local"] else []))
+    sc, opts = cli.align_config(args)
+    mesh = make_mesh() if run["mesh"] == "data" else make_tp_mesh(world)
+    for axis in mesh.mesh_dim_names:  # set up the groups' communicators
+        dist.barrier(group=mesh.get_group(axis))
+    timers = PhaseTimers()
+    sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
+    sw_cuda.SHAPES.clear()
+    rank_ops.REDUCES = 0
+    rank_ops.REDUCE_STREAMS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timers.phase("loadIndex"):
+        fm = cli._load_index(run["idx"])
+        before = torch.cuda.memory_allocated()
+        al = TorchAligner(fm, sc, opts, device=device, mesh=mesh,
+                          timers=timers)
+        torch.cuda.synchronize()
+        dev_bytes = torch.cuda.memory_allocated() - before
+    n = 0
+    with open(sam, "w") as out:
+        w = SamWriter(out, fm.refmap.refnames, fm.refmap.reflens)
+        w.write_header()
+        for batch in batch_iterator(open_reads(run["fq"]), args.batch):
+            cli.write_unpaired(w, batch, al.align_batch(batch))
+            n += len(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fields = ("blocks", "sa_sample", "ftab", "ref_words", "fchr")
+    return dict(
+        tag=run["tag"], sam=sam, reads=n, wall=wall,
+        launches=[sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL],
+        shapes={f"{L}x{C}": k for (_loc, L, C), k in sw_cuda.SHAPES.items()},
+        reduces=rank_ops.REDUCES,
+        reduce_s=timers.acc.get("tpReduce", 0.0),
+        reduces_on_own_stream=(set(rank_ops.REDUCE_STREAMS)
+                               <= {al.stream.cuda_stream}),
+        dev_bytes=dev_bytes,
+        idx_bytes=sum(getattr(al.idx, f).numel() * 8 for f in fields),
+        hbm=tp_hbm_per_device(fm, world) if run["mesh"] == "tp" else None,
+        timers=al.timers.render())
+
+
+def rank13_capacity(world):
+    """Part (c): the closed-form A^n index past 2^31 rows (phase 12 (d)'s)
+    sharded over a model axis of ``world``: this rank's device bytes, and
+    poly_a_checks at N_ROWS_13 rows, a third of them from the first shard
+    boundary to 2^31 and a third past 2^31, through the reduces (the same
+    rows on every rank)."""
+    from omp_bowtie2_prime_tpu_torch.index.format import DEV_OCC_BLOCK
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
+        make_tp_mesh, shard_index, tp_hbm_per_device)
+
+    n = POLY_A_N
+    t0 = time.perf_counter()
+    fm = homopolymer_index(n, srate=8, ftab_k=12)
+    hbm = tp_hbm_per_device(fm, world)
+    mesh = make_tp_mesh(world)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    idx = shard_index(fm, mesh)
+    del fm
+    torch.cuda.synchronize()
+    dev = torch.cuda.memory_allocated() - before
+    t2 = time.perf_counter()
+    boundary = idx.tp.nblk_loc * DEV_OCC_BLOCK  # rank 1's first row
+    rank_ops.REDUCES = 0
+    _wins, lanes = poly_a_checks(idx, n, np.random.default_rng(SEED + 13),
+                                 N_ROWS_13, split=(boundary, 1 << 31))
+    del _wins
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rows = (idx.blocks.shape[0], idx.sa_sample.shape[0])
+    del idx
+    torch.cuda.empty_cache()
+    return dict(build_s=t1 - t0, shard_s=t2 - t1, check_s=t3 - t2,
+                dev_bytes=dev, hbm=hbm, rows=rows, boundary=boundary,
+                lanes=lanes, reduces=rank_ops.REDUCES)
+
+
+def rank13_main(spec_path, rank):
+    """A rank of phase 13: joins the part's world on the spec's card
+    ("cuda:0", or "cuda": card ``rank``) and runs its aligns (after an
+    untimed one of the first, when the spec says "warm": the process's
+    cold start) or the capacity check; writes its report (JSON) beside the
+    spec. Any failure exits non-zero: nothing is caught."""
+    import torch.distributed as dist
+
+    from omp_bowtie2_prime_tpu_torch.parallel.distributed import (
+        init_distributed)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    device = torch.device(spec["device"])
+    got = init_distributed(f"127.0.0.1:{spec['port']}", world, rank,
+                           device=device, backend=spec["backend"])
+    if got != (rank, world):
+        raise AssertionError(f"init_distributed gave {got}")
+    device = torch.device("cuda", torch.cuda.current_device())
+    report = dict(backend=dist.get_backend(), device=str(device))
+    if spec["part"] == "c":
+        report["capacity"] = rank13_capacity(world)
+    else:
+        if spec["warm"]:
+            rank13_align(dict(spec["runs"][0], tag="warm-up"), world, rank,
+                         spec["wd"], device)
+        report["runs"] = [rank13_align(run, world, rank, spec["wd"], device)
+                          for run in spec["runs"]]
+    with open(spec_path[:-5] + f"_{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(part, world, backend, wd, runs=(), device="cuda:0",
+                warm=False):
+    """Starts a part's ranks as fresh processes, waits for them (at most
+    RANK_TIMEOUT s, then kills them) and returns their reports. Fails,
+    with the ranks' output, if any rank exits non-zero."""
+    spec = os.path.join(wd, f"p13_{part}.json")
+    with open(spec, "w") as f:
+        json.dump(dict(part=part, world=world, backend=backend,
+                       device=device, port=free_port(), wd=wd,
+                       runs=list(runs), warm=warm), f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank13", spec,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[13] ({part}) rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    reports = []
+    for r in range(world):
+        with open(spec[:-5] + f"_{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
+                   replicated):
+    """One rank's align of phase 13 against its phase's: the records
+    equal; on a tp mesh reduces on the aligner's stream and the shard's
+    bytes those tp_hbm_per_device gives; the kernel of the mode launched
+    (at the phase's shapes where the work is replicated, as it is at one
+    rank and on a model axis), the other not. Logs the rank's numbers."""
+    tag = rep["tag"]
+    got = sam_records(rep["sam"])
+    if got != want_recs:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want_recs))
+                    if a != b), min(len(got), len(want_recs)))
+        raise AssertionError(f"[13] ({part}) {tag} rank {rank}: records "
+                             f"differ from the phase's at record {bad} of "
+                             f"{len(want_recs)} ({len(got)} written)")
+    shapes = {tuple(map(int, k.split("x"))): v
+              for k, v in rep["shapes"].items()}
+    mine, other = rep["launches"][::-1] if local else rep["launches"]
+    log(f"[13] ({part}) {tag} rank {rank}: {rep['reads']} reads in "
+        f"{rep['wall']:.2f} s = {rep['reads'] / rep['wall']:.1f} reads/s "
+        f"(wall, index load included); records equal the phase's; "
+        f"{'K2' if local else 'K1'} launches {mine}; REDUCES "
+        f"{rep['reduces']}, tpReduce {rep['reduce_s']:.3f} s; index "
+        f"{rep['idx_bytes']} bytes on the card (allocated "
+        f"{rep['dev_bytes']})"
+        + (f"; tp_hbm_per_device {rep['hbm']}" if rep["hbm"] else ""))
+    for line in rep["timers"].splitlines():
+        log(f"[13]   {line}")
+    if mine <= 0 or other != 0:
+        raise AssertionError(f"[13] {tag}: launches {rep['launches']}")
+    if replicated and shapes != want_shapes:
+        raise AssertionError(f"[13] {tag}: launches by (L, C) {shapes} "
+                             f"against the phase's {want_shapes}")
+    if rep["hbm"] is not None:
+        if rep["reduces"] <= 0 or not rep["reduces_on_own_stream"]:
+            raise AssertionError(f"[13] {tag}: {rep['reduces']} reduces, "
+                                 "on the aligner's stream: "
+                                 f"{rep['reduces_on_own_stream']}")
+        if rep["idx_bytes"] != rep["hbm"]["tp_sharded"]:
+            raise AssertionError(f"[13] {tag}: {rep['idx_bytes']} bytes, "
+                                 f"not {rep['hbm']['tp_sharded']}")
+    return shapes
+
+
+def run_mesh(idx, sets, base, wd):
+    """Phase 13 (a)-(c), every rank on cuda:0; returns {path: (kernel tag,
+    launches by (L, C), summed over the ranks)} for the kernels line."""
+    e2e = dict(idx=idx, fq=sets["e2e"][0], local=False)
+    loc = dict(idx=idx, fq=sets["local"][0], local=True)
+    want = {k: (sam_records(base[k][0]), base[k][1]) for k in ("e2e",
+                                                               "local")}
+    # (a) warms its ranks (a few seconds); (b)'s staged reduces would
+    # make a warm-up as long as its first align
+    parts = [
+        ("a", 1, "nccl", True, [dict(e2e, tag="nccl data", mesh="data"),
+                                dict(e2e, tag="nccl tp", mesh="tp")]),
+        ("b", 2, "gloo", False, [dict(e2e, tag="gloo tp", mesh="tp"),
+                                 dict(loc, tag="gloo tp --local", mesh="tp"),
+                                 dict(e2e, tag="gloo data", mesh="data")]),
+    ]
+    paths = {}
+    for part, world, backend, warm, runs in parts:
+        t0 = time.perf_counter()
+        reports = spawn_ranks(part, world, backend, wd, runs, warm=warm)
+        for rank, rep in enumerate(reports):
+            if rep["backend"] != backend or rep["device"] != "cuda:0":
+                raise AssertionError(f"[13] ({part}) rank {rank}: "
+                                     f"{rep['backend']} on {rep['device']}")
+        for i, run in enumerate(runs):
+            k = "local" if run["local"] else "e2e"
+            total = collections.Counter()
+            for rank, rep in enumerate(reports):
+                total.update(check_mesh_run(
+                    part, rep["runs"][i], rank, *want[k], run["local"],
+                    world == 1 or run["mesh"] == "tp"))
+            paths[f"mesh {run['tag']}"] = ("K2" if run["local"] else "K1",
+                                           dict(total))
+        log(f"[13] ({part}) {world} rank(s), {backend} on cuda:0: "
+            f"{len(runs)} aligns in {time.perf_counter() - t0:.1f} s "
+            "(processes' start included)")
+
+    t0 = time.perf_counter()
+    reports = spawn_ranks("c", 2, "gloo", wd)
+    hbm = reports[0]["capacity"]["hbm"]
+    for rank, rep in enumerate(reports):
+        c = rep["capacity"]
+        # the shard's arrays, within the allocator's 2 MiB rounding each
+        if abs(c["dev_bytes"] - hbm["tp_sharded"]) > 5 * (2 << 20) \
+                or c["reduces"] <= 0:
+            raise AssertionError(f"[13] (c) rank {rank}: {c['dev_bytes']} "
+                                 f"bytes against {hbm}, {c['reduces']} "
+                                 "reduces")
+        log(f"[13] (c) A^n, n = {POLY_A_N}, sharded over 2 gloo ranks: rank "
+            f"{rank} holds {c['rows'][0]} block records and {c['rows'][1]} "
+            f"SA rows, {c['dev_bytes'] / 1e9:.3f} GB on the card against "
+            f"{hbm['replicated'] / 1e9:.3f} GB whole "
+            f"({100 * c['dev_bytes'] / hbm['replicated']:.1f}%: the text "
+            f"and the ftab stay whole; tp_hbm_per_device {hbm}); host build "
+            f"{c['build_s']:.1f} s, shard_index {c['shard_s']:.1f} s")
+        log(f"[13] (c) rank {rank}: equal to the closed form at rows from "
+            f"0, from the shard boundary (row {c['boundary']}) and from "
+            "2^31: " + ", ".join(f"{k} {v}" for k, v in c["lanes"].items())
+            + f" lanes; {c['reduces']} reduces in {c['check_s']:.1f} s")
+    log(f"[13] (c) in {time.perf_counter() - t0:.1f} s (processes' start "
+        "included)")
+    return paths
+
+
 def main():
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1833,6 +2153,7 @@ def main():
         base["e2e"] = (os.path.join(wd, "gpu_e2e.sam"), shapes)
         shapes, walls["local"] = run_path(6, idx, sets["local"], wd, True)
         count("K2", "local", shapes)
+        base["local"] = (os.path.join(wd, "gpu_local.sam"), shapes)
         lidx, lfq, lhead, truth = make_long_data(wd)
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[tag] = run_long(lidx, lfq, lhead, truth, wd, local)
@@ -1856,6 +2177,8 @@ def main():
                 build_s).items():
             count(tag, path, shapes)
         entries["K1"][True]["shapes"].append(run_int64_rows(rng))
+        for path, (tag, shapes) in run_mesh(idx, sets, base, wd).items():
+            count(tag, path, shapes)
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")
@@ -1907,4 +2230,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank13"]:
+        rank13_main(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

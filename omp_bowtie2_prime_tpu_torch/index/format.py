@@ -25,6 +25,8 @@ import pickle
 import numpy as np
 import torch
 
+from ..utils.metrics import PhaseTimers
+
 OCC_BLOCK = 128  # BWT rows per occ checkpoint block (host format)
 WORD_BASES = 16  # 2-bit bases per uint32 word
 WORDS_PER_BLOCK = OCC_BLOCK // WORD_BASES  # 8
@@ -155,9 +157,28 @@ def _wide_rows(a: np.ndarray, per_row: int) -> np.ndarray:
 
 
 @dataclasses.dataclass
+class TpShard:
+    """Where this rank's rows of a row-sharded index lie: the counterpart
+    of the JAX DeviceIndex's ``tp`` descriptor (axis, nblocks_local,
+    nsa_local). The block records and the SA sample are cut into ``size``
+    equal slices (padded with zero records); rank ``rank`` of the model
+    group ``group`` holds slice ``rank``. ``timers`` times the reduces
+    (``tpReduce``): the aligner that owns the index sets its own."""
+
+    group: object  # torch.distributed ProcessGroup of the model axis
+    rank: int  # this process's rank in it
+    size: int
+    nblk_loc: int  # block records a rank holds
+    nsa_loc: int  # SA-sample rows a rank holds
+    timers: PhaseTimers = dataclasses.field(default_factory=PhaseTimers)
+
+
+@dataclasses.dataclass
 class GpuIndex:
     """Device-resident FM index: the arrays of the JAX DeviceIndex as
-    int64 tensors (uint32 bit patterns, all non-negative)."""
+    int64 tensors (uint32 bit patterns, all non-negative). With ``tp``
+    set (parallel/tp_index.shard_index), ``blocks`` and ``sa_sample`` hold
+    only this rank's slice of the rows."""
 
     blocks: torch.Tensor  # [nbd, 128] 1024-row block records
     fchr: torch.Tensor  # [5]
@@ -168,15 +189,16 @@ class GpuIndex:
     nrows: int
     ftab_k: int
     srate: int
+    tp: TpShard | None = None
 
-    @classmethod
-    def from_host(cls, fm: FMIndex, device) -> "GpuIndex":
-        """Upload ``fm`` in the device layout. Refuses 2^32 rows or more
-        (the block checkpoints are uint32)."""
+    @staticmethod
+    def host_layout(fm: FMIndex) -> dict:
+        """The device layout's arrays on the host (uint32 numpy; fchr
+        int64), by field name. Refuses 2^32 rows or more (the block
+        checkpoints are uint32)."""
         if fm.nrows >= ROW_LIMIT:
             raise ValueError(f"an index of {fm.nrows} rows: the block "
                              "checkpoints are uint32 (fewer than 2^32 rows)")
-        device = torch.device(device)
         # 8 host 128-row blocks per 1024-row device record; checkpoints
         # at a record start are the host checkpoints of its first block
         nbh = fm.nblocks
@@ -205,16 +227,22 @@ class GpuIndex:
         ref_words = np.concatenate(
             [fm.ref_words.astype(np.uint32), np.zeros(128, np.uint32)]
         )
+        return dict(blocks=blocks, fchr=np.asarray(fm.fchr), ftab=ftab,
+                    sa_sample=_wide_rows(fm.sa_sample, DEV_SA_PER_ROW),
+                    ref_words=ref_words)
 
-        def put(a):
-            return torch.from_numpy(a.astype(np.int64)).to(device)
+    @staticmethod
+    def upload(a: np.ndarray, device) -> torch.Tensor:
+        """A host layout array on ``device`` as int64."""
+        return torch.from_numpy(a.astype(np.int64)).to(device)
 
+    @classmethod
+    def from_host(cls, fm: FMIndex, device) -> "GpuIndex":
+        """Upload ``fm`` in the device layout (``host_layout``)."""
+        device = torch.device(device)
+        arrs = cls.host_layout(fm)
         return cls(
-            blocks=put(blocks),
-            fchr=put(np.asarray(fm.fchr)),
-            ftab=put(ftab),
-            sa_sample=put(_wide_rows(fm.sa_sample, DEV_SA_PER_ROW)),
-            ref_words=put(ref_words),
+            **{k: cls.upload(a, device) for k, a in arrs.items()},
             zoff=int(fm.zoff),
             nrows=int(fm.nrows),
             ftab_k=int(fm.ftab_k),

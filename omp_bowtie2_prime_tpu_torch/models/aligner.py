@@ -312,13 +312,22 @@ class TorchAligner:
 
     def __init__(self, fm: FMIndex, scoring: Scoring | None = None,
                  opts: AlignOpts | None = None, *, device,
-                 timers: PhaseTimers | None = None, share=None):
+                 timers: PhaseTimers | None = None, share=None, mesh=None):
         """share: another TorchAligner over the same FMIndex on the same
         device. This instance reuses its device index and unpacked text
         (read-only after construction) and uploads nothing: one index
         serves both align workers of -p 2 and align_stream
         (models/pipeline.py). ``peers`` lists the instances that share
-        this one's index."""
+        this one's index; a sharer shares the mesh too.
+
+        mesh: a DeviceMesh of one process a device (parallel/mesh.py,
+        parallel/tp_index.py), ``device`` this rank's. Its 'model' axis
+        shards the index by row (each FM op then reduces its records over
+        the axis's group); its 'data' axis cuts each ``align_batch`` into
+        contiguous blocks of reads, one a data rank, whose results every
+        rank gathers: a mesh changes where reads align, never what
+        ``align_batch`` returns. Every rank of the mesh makes the same
+        calls in the same order."""
         self.fm = fm
         self.sc = scoring or Scoring()
         self.opts = opts or AlignOpts()
@@ -330,15 +339,26 @@ class TorchAligner:
         # across one take the bridge (see _run_bridge)
         self._intra_gaps = bool(len(fr) > 1 and (fr[1:] == fr[:-1]).any())
         self.peers: list = []
+        self.placer = None
+        if mesh is not None:
+            from ..parallel.mesh import MeshPlacer
+
+            self.placer = MeshPlacer(mesh)
+            if self.placer.device != self.device:
+                raise ValueError(f"the mesh's device is {self.placer.device}"
+                                 f", not {self.device}")
         if share is not None:
             if share.fm is not fm:
                 raise ValueError("share= must wrap the same FMIndex")
             if share.device != self.device:
                 raise ValueError("share= must be on the same device")
             self.idx, self.text = share.idx, share.text
+            self.placer = share.placer
             share.peers.append(self)
         else:
-            self.idx = GpuIndex.from_host(fm, self.device)
+            self.idx = (GpuIndex.from_host(fm, self.device)
+                        if self.placer is None else
+                        self.placer.put_index(fm))
             self.text = dna.unpack_2bit(fm.ref_words, fm.n)
         self.stream = None
         if self.device.type == "cuda":
@@ -358,6 +378,9 @@ class TorchAligner:
         self.mm_tab = self.sc.mm_table()
         self.swp = sw.SWParams.from_scoring(self.sc)
         self.timers = timers if timers is not None else PhaseTimers()
+        if share is None and self.idx.tp is not None:
+            # the reduces of a sharded index time into its owner's timers
+            self.idx.tp.timers = self.timers
         self.metrics = PipelineMetrics()
         self._dev_mat = None
 
@@ -835,10 +858,29 @@ class TorchAligner:
         (host work while it runs), the dispatch after the wide escalation
         is queued, so that the next batch's round 0 runs on the device
         under this batch's host tail; both at once after round 0 when it
-        queued no DP."""
-        with self._on_stream():
-            return self._align_batch(reads, _prebuilt, _predisp, _minscs,
-                                     _next_cb)
+        queued no DP.
+
+        On a mesh, the placer's lock holds the batch's collectives
+        together; on a data axis this rank aligns its block of the reads
+        and every rank returns the whole batch's results."""
+        if self.placer is None:
+            with self._on_stream():
+                return self._align_batch(reads, _prebuilt, _predisp,
+                                         _minscs, _next_cb)
+        pl = self.placer
+        with pl.lock, self._on_stream():
+            if pl.n_data == 1:
+                return self._align_batch(reads, _prebuilt, _predisp,
+                                         _minscs, _next_cb)
+            if _prebuilt or _predisp is not None or _minscs is not None \
+                    or _next_cb is not None:
+                raise ValueError("align_stream's batches are whole: a data "
+                                 "axis cuts a batch inside align_batch")
+            mine = pl.put_batch(reads)
+            part = (self._align_batch(mine, False, None, None, None)
+                    if len(mine) else [])
+            with self.timers.phase("dataGather"):
+                return pl.gather_batch(part)
 
     def _align_batch(self, reads, prebuilt, predisp, minscs, next_cb):
         n = len(reads)

@@ -11,11 +11,21 @@ index/format.py), so ``>>`` is a logical shift. Row vectors are int64.
 Out-of-range gather indices follow JAX's gather semantics (a negative
 index wraps once, then the index clamps), so garbage lanes behave as they
 do in the JAX package and never fault.
+
+On a row-sharded index (``idx.tp`` set, parallel/tp_index.py) each rank
+holds 1/D of the block records and of the SA sample: the owner of a
+row gathers its record, every other rank contributes zeros, and one
+``all_reduce`` (SUM) over the model group gives the record to all, the
+counterpart of the JAX package's ``psum``. ``REDUCES`` counts them.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import torch
+import torch.distributed as dist
 
 from ..index.format import (
     DEV_BWT, DEV_BWT_WORDS, DEV_FTAB_PER_ROW, DEV_MARK, DEV_MARKCP,
@@ -24,6 +34,12 @@ from ..index.format import (
 
 M32 = 0xFFFFFFFF
 _EVEN = 0x55555555
+
+REDUCES = 0  # all_reduces of a sharded index's records
+# reduces of CUDA records by the stream current at the call (its
+# cudaStream_t): the aligner's own, as sw_cuda.STREAMS counts launches
+REDUCE_STREAMS: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()  # align workers reduce at once at -p 2
 
 
 def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -64,10 +80,35 @@ def _word_limits(k):
     return (k[:, None] - j).clamp(0, WORD_BASES)
 
 
+def _owner_gather(t, tp, nloc: int, i: torch.Tensor) -> torch.Tensor:
+    """Rows ``i`` (global, unclamped) of a table sharded row-wise over
+    ``tp``'s group, of which this rank holds rows [rank * nloc, (rank +
+    1) * nloc) as ``t``: gathered where this rank owns them, zeros
+    elsewhere, summed over the group. A row no rank owns (a garbage lane's,
+    negative or past the padded end) comes back as zeros, as in the JAX
+    package's tensor-parallel path."""
+    global REDUCES
+    li = i - tp.rank * nloc  # int64, as the rows
+    mine = (li >= 0) & (li < nloc)
+    rec = t[torch.where(mine, li, torch.zeros_like(li))]
+    rec = torch.where(mine[:, None], rec, torch.zeros_like(rec))
+    with tp.timers.phase("tpReduce"):
+        dist.all_reduce(rec, op=dist.ReduceOp.SUM, group=tp.group)
+    with _count_lock:
+        REDUCES += 1
+        if rec.is_cuda:
+            REDUCE_STREAMS[torch.cuda.current_stream(rec.device)
+                           .cuda_stream] += 1
+    return rec
+
+
 def _gather_block(idx, rows):
     """ONE gather of the block record: (blk [B, 128], k [B] in-block
     offset)."""
-    return take(idx.blocks, rows // DEV_OCC_BLOCK), rows % DEV_OCC_BLOCK
+    b, k = rows // DEV_OCC_BLOCK, rows % DEV_OCC_BLOCK
+    if idx.tp is None:
+        return take(idx.blocks, b), k
+    return _owner_gather(idx.blocks, idx.tp, idx.tp.nblk_loc, b), k
 
 
 def _fchr_of(idx, c):
@@ -164,6 +205,9 @@ def ftab_lookup(idx, q):
 
 
 def sa_lookup(idx, r):
-    """sa_sample[r] from the 128-per-row table."""
-    return take(idx.sa_sample, r // DEV_SA_PER_ROW).gather(
-        1, (r % DEV_SA_PER_ROW)[:, None])[:, 0]
+    """sa_sample[r] from the 128-per-row table (owner-gathered on a
+    sharded index)."""
+    row = r // DEV_SA_PER_ROW
+    rec = (take(idx.sa_sample, row) if idx.tp is None else
+           _owner_gather(idx.sa_sample, idx.tp, idx.tp.nsa_loc, row))
+    return rec.gather(1, (r % DEV_SA_PER_ROW)[:, None])[:, 0]

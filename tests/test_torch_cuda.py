@@ -796,3 +796,44 @@ def test_poly_a_past_2_31_rows_on_the_card(cuda):
     assert lanes["resolve_rows"] == 1 << 16
     del idx, _wins
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_tp_mesh_of_two_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on cuda:0, joined through gloo (NCCL takes one rank a
+    GPU), shard the index over a model axis of 2 (tests/
+    torch_dist_workers.py ``task_tp_cuda``): each rank's results equal
+    one device's on the card, its shard is on the card and holds half the
+    block records, and it reduced and launched K1."""
+    import pickle
+
+    import torch_dist_workers as workers
+
+    from omp_bowtie2_prime_tpu_torch.index.builder import (
+        build_index_from_text)
+    from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+
+    rng = np.random.default_rng(21)
+    text = rng.integers(0, 4, 60000).astype(np.int8)
+    fm = build_index_from_text(*join_references(["g"], [text.copy()]),
+                               ftab_k=8)
+    spec = []
+    for i in range(300):
+        p = int(rng.integers(0, len(text) - 150))
+        s = text[p : p + 150].copy()
+        s[rng.integers(0, 150, 2)] = rng.integers(0, 4, 2)
+        spec.append((f"t{i}", s, np.full(150, 35, np.uint8)))
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(dict(fm=fm, reads=spec, device="cuda:0",
+                         backend="gloo"), f)
+    ranks = workers.run_world("tp_cuda", 2, str(tmp_path))
+    one = [workers.res_tuple(r) for r in TorchAligner(
+        fm, device="cuda").align_batch(workers._reads(spec))]
+    assert sum(r[0] == "aligned" for r in one) >= 290
+    nbd = (fm.nblocks + 7) // 8
+    for got in ranks:
+        assert got["results"] == one
+        assert got["reduces"] > 0 and got["launches"] > 0
+        assert got["rows"] == -(-nbd // 2)
+        assert got["device"] == "cuda:0"

@@ -99,9 +99,34 @@ def test_port_runs_without_jax_and_flax():
     assert "INDEX 30000" in r.stdout
 
 
+def test_spawned_rank_runs_with_the_jax_package_blocked(tmp_path):
+    """A rank of a multi-process run (tests/torch_dist_workers.py, as the
+    multi-GPU tests spawn them) runs with jax, flax and the JAX package
+    blocked: two gloo ranks shard a small index over a model axis, and
+    occ and the SA sample through the reduces equal the whole index's."""
+    import pickle
+
+    import numpy as np
+    import torch_dist_workers as workers
+
+    from omp_bowtie2_prime_tpu_torch.index.builder import (
+        build_index_from_text)
+    from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
+
+    text = np.random.default_rng(4).integers(0, 4, 9000).astype(np.int8)
+    fm = build_index_from_text(*join_references(["c"], [text]), ftab_k=6)
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(dict(fm=fm), f)
+    for got in workers.run_world("blocked", 2, str(tmp_path)):
+        assert got["blocked"] and got["jax_blocked"]
+        assert got["modules"] == []
+        assert got["same"]
+
+
 def test_no_source_imports_the_jax_package():
-    """Every .py of the port, and chip_smoke.py: no ``import`` / ``from``
-    of jax, flax or omp_bowtie2_prime_tpu (other than the port itself)."""
+    """Every .py of the port (parallel/ too), and chip_smoke.py: no
+    ``import`` / ``from`` of jax, flax or omp_bowtie2_prime_tpu (other
+    than the port itself)."""
     pat = re.compile(
         r"^\s*(?:from|import)\s+(?:jax|flax|omp_bowtie2_prime_tpu)(?![\w])",
         re.M)
@@ -110,6 +135,9 @@ def test_no_source_imports_the_jax_package():
             os.path.join(ROOT, "omp_bowtie2_prime_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert {"mesh.py", "tp_index.py", "distributed.py"} <= {
+        os.path.basename(p) for p in files
+        if os.path.basename(os.path.dirname(p)) == "parallel"}
     bad = []
     for path in files:
         with open(path) as f:

@@ -11,6 +11,7 @@ import pytest
 from omp_bowtie2_prime_tpu import native as jnative
 from omp_bowtie2_prime_tpu.io import fastq as jfastq
 from omp_bowtie2_prime_tpu.io import sam as jsam
+from omp_bowtie2_prime_tpu.parallel import distributed as jdist
 from omp_bowtie2_prime_tpu.utils import cigar as jcigar
 from omp_bowtie2_prime_tpu.utils import dna as jdna
 from omp_bowtie2_prime_tpu.utils import mapq as jmapq
@@ -22,6 +23,7 @@ from omp_bowtie2_prime_tpu.utils import suffix_array as jsa
 from omp_bowtie2_prime_tpu_torch import native as tnative
 from omp_bowtie2_prime_tpu_torch.io import fastq as tfastq
 from omp_bowtie2_prime_tpu_torch.io import sam as tsam
+from omp_bowtie2_prime_tpu_torch.parallel import distributed as tdist
 from omp_bowtie2_prime_tpu_torch.utils import cigar as tcigar
 from omp_bowtie2_prime_tpu_torch.utils import dna as tdna
 from omp_bowtie2_prime_tpu_torch.utils import mapq as tmapq
@@ -456,3 +458,28 @@ def test_native_library_builds_beside_the_port():
     assert tnative._build() is not None
     assert [os.path.basename(s) for s in tnative._SRCS] == [
         "btcore.cpp", "blockwise.cpp"]
+
+
+@pytest.mark.parametrize("nproc,block", [(1, 5), (2, 3), (3, 4), (5, 2)])
+def test_distributed_shard_and_merge(tmp_path, nproc, block):
+    """parallel/distributed.py's host_shard and merge_sam_shards, the
+    port's copies: the same shards of 29 reads, and the shards' SAM
+    (reads of one to three records) merged into the same file, in input
+    order."""
+    rng = np.random.default_rng(nproc * 10 + block)
+    reads = [(f"q{i}", int(rng.integers(1, 4))) for i in range(29)]
+    paths = []
+    for h in range(nproc):
+        mine = list(tdist.host_shard(iter(reads), h, nproc, block))
+        assert mine == list(jdist.host_shard(iter(reads), h, nproc, block))
+        p = tmp_path / f"shard{h}.sam"
+        p.write_text(f"@HD\tVN:1.5\tSO:unsorted\n@PG\tID:h{h}\n" + "".join(
+            f"{name}\t{256 if k else 0}\tc\t{k + 1}\t1\t2M\t*\t0\t0\tAC"
+            "\tII\n" for name, n in mine for k in range(n)))
+        paths.append(str(p))
+    tdist.merge_sam_shards(paths, str(tmp_path / "t.sam"), block=block)
+    jdist.merge_sam_shards(paths, str(tmp_path / "j.sam"), block=block)
+    got = (tmp_path / "t.sam").read_text()
+    assert got == (tmp_path / "j.sam").read_text()
+    assert [ln.split("\t", 1)[0] for ln in got.splitlines()[2:]] == [
+        name for name, n in reads for _ in range(n)]
