@@ -8,11 +8,12 @@ Drives the port's main paths (``omp_bowtie2_prime_tpu_torch.cli`` build,
 against a reference with N runs, ``align -1 -2`` paired, end to end and
 ``--local``, the index surface: the blockwise and .bt2 builds,
 ``inspect``, aligns on .bt2 / .bt2l imports and with ``-o``, an index
-past 2^31 rows, and the multi-GPU API: a data mesh and a row-sharded
-index over ranks of their own) at a real size: two 4.6 Mbp genomes (a
-bacterium's size), 25,000 simulated reads for the end-to-end path,
-50,000 for the local one, 10,000 of 100 to 1,000 bp for the long one and
-20,000 pairs of 2 x 150 bp for the paired one.
+past 2^31 rows, the multi-GPU API: a data mesh and a row-sharded index
+over ranks of their own, for reads and for pairs, and deep repeats) at a
+real size: two 4.6 Mbp genomes (a bacterium's size), 25,000 simulated
+reads for the end-to-end path, 50,000 for the local one, 10,000 of 100
+to 1,000 bp for the long one, 20,000 pairs of 2 x 150 bp for the paired
+one and 4,000 reads from repeat families of 50 and 500 copies.
 Phases, one line each, stamped with the seconds since the start:
 
   1. the device: its name and power limit (nvidia-smi);
@@ -49,7 +50,7 @@ Phases, one line each, stamped with the seconds since the start:
      discordant shares, mate 1's placement and the fragment length, the
      rescue's launches at L=160, C=641 (the kernels' wide body) and the
      first pairs' SAM against the CPU run;
-  9. every (L, C) that the runs of phases 5 to 10 launched a kernel at
+  9. every (L, C) that the runs of phases 5 to 14 launched a kernel at
      (``sw_cuda.SHAPES``) and that phase 3 did not hold: the kernel
      against its plain version there too, so that no shape of the main
      paths goes unchecked;
@@ -94,20 +95,34 @@ Phases, one line each, stamped with the seconds since the start:
      closed form, and K1 on windows gathered there equal to its plain
      version; the index is freed after it.
  13. multi-GPU (``parallel/``), each part's ranks fresh processes of this
-     script (``--rank13``) on cuda:0 through ``TorchAligner(mesh=)``, each
-     mesh's communicators set up before its align's clock starts: (a)
-     NCCL at one rank from tcp://127.0.0.1, after an untimed align, a
-     data mesh and a tp mesh (model=1: the index sharded into one shard,
-     a reduce a record gather) on phase 5's reads; (b) gloo, two ranks sharing the card
-     (NCCL takes one rank a GPU): a tp mesh (model=2) on phase 5's reads
-     and on phase 6's with --local, a data mesh (data=2) on phase 5's.
-     Every rank's records equal its phase's; where the work is replicated
-     (one rank, a model axis) its launches by (L, C) are the phase's; a
-     tp run reduced on the aligner's stream and its shard holds
-     ``tp_hbm_per_device``'s bytes; reads/s, REDUCES and tpReduce. (c)
-     phase 12 (d)'s A^n index sharded over two gloo ranks: each rank's
-     bytes on the card, and the FM checks of (d) at 2^20 rows across the
-     shard boundary and past 2^31 through the reduces.
+     script (``--rank13``) on cuda:0 through ``TorchAligner(mesh=)`` (and
+     ``PairedAligner`` over it for pairs), each mesh's communicators set
+     up before its align's clock starts: (a) NCCL at one rank from
+     tcp://127.0.0.1, after an untimed align, a data mesh and a tp mesh
+     (model=1: the index sharded into one shard, a reduce a record
+     gather) on phase 5's reads, a data mesh on phase 8's pairs end to
+     end and --local, a tp mesh on the pairs end to end; (b) gloo, two
+     ranks sharing the card (NCCL takes one rank a GPU): a tp mesh
+     (model=2) on phase 5's reads and on phase 6's with --local, a data
+     mesh (data=2) on phase 5's reads and on phase 8's pairs, a tp mesh
+     on the first N_PAIRS_13 pairs, and the same pairs through two
+     aligners sharing the placer as the two workers of ``run_pipeline``,
+     two batches. Every rank's records
+     equal its phase's (the head's, for a cut run); where the work is
+     replicated (one rank, a model axis, no cut) its launches by (L, C)
+     are the phase's, mate rescue's 160x641 among them; a tp run reduced
+     on its aligners' streams and its shard holds ``tp_hbm_per_device``'s
+     bytes; reads/s, its own blocks' reads, dataGather, REDUCES and
+     tpReduce. (c) phase 12 (d)'s A^n index sharded over two gloo ranks:
+     each rank's bytes on the card, and the FM checks of (d) at 2^20 rows
+     across the shard boundary and past 2^31 through the reduces.
+ 14. deep repeats (``run_deep``: scripts/torch_deep_repeat_differential.py
+     at its defaults): families of 50 and 500 exact copies of a 300 bp
+     unit in a 2 Mbp genome, 2,000 reads a family, where a seed's SA
+     range is far wider than range_cap; every read on a copy of its
+     family's unit with a consistent record and MAPQ 0 or 1, the picks
+     spread over the copies, reads/s, the walk's LF steps and K1's
+     launches, and N_CPU_DEEP reads' records equal to the CPU run's.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -137,6 +152,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from omp_bowtie2_prime_tpu_torch import cli, native  # noqa: E402
+from omp_bowtie2_prime_tpu_torch.index.closed_form import (  # noqa: E402
+    homopolymer_index)
 from omp_bowtie2_prime_tpu_torch.ops import (  # noqa: E402
     _build, sw, sw_cuda, walk)
 
@@ -1434,54 +1451,6 @@ POLY_A_N = (1 << 31) + (1 << 20)
 _HASH = 0x9E3779B1  # the word pattern of (d)'s second gather text
 
 
-def homopolymer_index(n, srate=8, ftab_k=10):
-    """The FM index of the text A^n (codes 0) in closed form, built with
-    numpy: SA[row] = n - row, every BWT char A (the dummy at zoff = n
-    too), occ(A, row) = row, the marked rows those with (n - row) % srate
-    == 0 (a bit pattern that repeats every lcm(srate, 32) rows), the
-    ftab's A^k range [k, n + 1) and every other k-mer's empty at n + 1.
-    Array for array what ``build_index_from_text`` gives for n zeros,
-    without a suffix sort."""
-    from omp_bowtie2_prime_tpu_torch.index.fasta import ReferenceMap
-    from omp_bowtie2_prime_tpu_torch.index.format import (
-        FMIndex, MARK_WORDS_PER_BLOCK, OCC_BLOCK, WORDS_PER_BLOCK)
-
-    nrows = n + 1
-    nblocks = -(-nrows // OCC_BLOCK)
-    starts = np.arange(nblocks, dtype=np.int64) * OCC_BLOCK
-    occ_cp = np.zeros((nblocks, 4), np.int64)
-    occ_cp[:, 0] = starts
-    r0 = n % srate  # the first marked row
-    period = int(np.lcm(srate, 32))
-    pattern = np.packbits((np.arange(period) - r0) % srate == 0,
-                          bitorder="little").view(np.uint32)
-    nwords = nblocks * MARK_WORDS_PER_BLOCK
-    mark_words = np.tile(pattern, -(-nwords // len(pattern)))[:nwords]
-    w = nrows // 32  # no mark at a row past the last
-    if w < nwords:
-        mark_words[w] &= np.uint32((1 << (nrows % 32)) - 1)
-        mark_words[w + 1 :] = 0
-    mark_cp = np.where(starts > r0, (starts - r0 + srate - 1) // srate, 0)
-    top = np.full(4**ftab_k, nrows, np.uint32)
-    top[0] = min(ftab_k, nrows)
-    fchr = np.array([1] + [nrows] * 4, np.int64)
-    return FMIndex(
-        n=n, nrows=nrows, zoff=n, fchr=fchr,
-        bwt_words=np.zeros(nblocks * WORDS_PER_BLOCK, np.uint32),
-        occ_cp=occ_cp, ftab_k=ftab_k, ftab_top=top,
-        ftab_bot=np.full(4**ftab_k, nrows, np.uint32), srate=srate,
-        mark_words=mark_words, mark_cp=mark_cp,
-        sa_sample=(np.arange(n // srate, -1, -1, dtype=np.int64)
-                   * srate).astype(np.uint32),
-        ref_words=np.zeros(-(-n // 16), np.uint32),
-        refmap=ReferenceMap(
-            refnames=["polyA"], reflens=np.array([n], np.int64),
-            frag_joined=np.zeros(1, np.int64),
-            frag_ref=np.zeros(1, np.int64),
-            frag_refid=np.zeros(1, np.int32),
-            frag_len=np.array([n], np.int64)))
-
-
 def poly_a_checks(idx, n, rng, B, split=1 << 31, W=200):
     """The port's FM ops on the device index of A^n (``idx``, a GpuIndex
     on any device, whole or sharded) against the closed form: occ,
@@ -1786,6 +1755,7 @@ def run_index_surface(wd, fa, idx, text, sets, build_s):
 # takes one rank a GPU; gloo stages each reduce through the host).
 RANK_TIMEOUT = 420  # seconds a part's ranks may take; killed past it
 N_ROWS_13 = 1 << 20  # part (c)'s FM-op lanes, a check
+N_PAIRS_13 = 2_000  # (b)'s pairs on a tp mesh: the head of phase 8's
 
 
 def free_port():
@@ -1800,25 +1770,38 @@ def free_port():
 
 def rank13_align(run, world, rank, wd, device):
     """One align of a rank on its mesh ("data": make_mesh, "tp":
-    make_tp_mesh(world)) on its card ``device``, as ``align -x -U -S`` runs
-    it (the CLI's configuration, batches and records) but through
-    ``TorchAligner(..., mesh=)``: every count set to 0 just before, read
-    just after. Returns the rank's report."""
+    make_tp_mesh(world)) on its card ``device``, as ``align -x -U -S``
+    (or ``-1 -2``: ``run["fq"]`` a pair of FASTQ files) runs it (the CLI's
+    configuration, batches and records) but through
+    ``TorchAligner(..., mesh=)`` and ``PairedAligner`` for pairs: the
+    first ``run["head"]`` items if given, in batches of ``run["batch"]``
+    (the CLI's default if not), with ``run["workers"]`` aligners sharing
+    the placer as the workers of ``run_pipeline``. Every
+    count set to 0 just before, read just after. Returns the rank's
+    report."""
+    import itertools
+
     import torch.distributed as dist
 
-    from omp_bowtie2_prime_tpu_torch.io.fastq import (batch_iterator,
-                                                      open_reads)
+    from omp_bowtie2_prime_tpu_torch.io.fastq import batch_iterator
     from omp_bowtie2_prime_tpu_torch.io.sam import SamWriter
     from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+    from omp_bowtie2_prime_tpu_torch.models.pipeline import run_pipeline
     from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
     from omp_bowtie2_prime_tpu_torch.parallel.mesh import make_mesh
     from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
         make_tp_mesh, tp_hbm_per_device)
     from omp_bowtie2_prime_tpu_torch.utils.metrics import PhaseTimers
+    from omp_bowtie2_prime_tpu_torch.utils.pe import (PEPolicy,
+                                                      policy_from_flags)
 
     sam = os.path.join(wd, f"p13_{run['tag'].replace(' ', '_')}_r{rank}.sam")
-    args = cli.parse_args(["align", "-x", run["idx"], "-U", run["fq"], "-S",
-                           sam, "--device", "cuda"]
+    paired = not isinstance(run["fq"], str)
+    inputs = (["-1", run["fq"][0], "-2", run["fq"][1]] if paired
+              else ["-U", run["fq"]])
+    args = cli.parse_args(["align", "-x", run["idx"], *inputs, "-S", sam,
+                           "--device", "cuda"]
                           + (["--local"] if run["local"] else []))
     sc, opts = cli.align_config(args)
     mesh = make_mesh() if run["mesh"] == "data" else make_tp_mesh(world)
@@ -1836,30 +1819,55 @@ def rank13_align(run, world, rank, wd, device):
         before = torch.cuda.memory_allocated()
         al = TorchAligner(fm, sc, opts, device=device, mesh=mesh,
                           timers=timers)
+        als = [al] + [TorchAligner(fm, sc, opts, device=device, share=al)
+                      for _ in range(run.get("workers", 1) - 1)]
         torch.cuda.synchronize()
         dev_bytes = torch.cuda.memory_allocated() - before
+    paired_src, _mixed, single_src = cli._sources(args)
+    src = cli._transform_reads(paired_src if paired else single_src, args,
+                               paired)
+    if run.get("head"):
+        src = itertools.islice(src, run["head"])
+    if paired:
+        pe = PEPolicy(pol=policy_from_flags(True, False),
+                      minfrag=args.minins, maxfrag=args.maxins)
+        fns = [PairedAligner(a, pe).align_pairs for a in als]
+    else:
+        fns = [a.align_batch for a in als]
     n = 0
     with open(sam, "w") as out:
         w = SamWriter(out, fm.refmap.refnames, fm.refmap.reflens)
         w.write_header()
-        for batch in batch_iterator(open_reads(run["fq"]), args.batch):
-            cli.write_unpaired(w, batch, al.align_batch(batch))
-            n += len(batch)
+
+        def emit(batch, results):
+            nonlocal n
+            n += len(batch) * (2 if paired else 1)
+            if not paired:
+                cli.write_unpaired(w, batch, results)
+                return
+            for (rd1, rd2), p in zip(batch, results):
+                w.write_pair(rd1, rd2, p.m1, p.m2, p.cat, p.tlen1, p.tlen2,
+                             unique=not p.extras)
+
+        run_pipeline(batch_iterator(src, run.get("batch", args.batch)), None,
+                     emit, align_fns=fns)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fields = ("blocks", "sa_sample", "ftab", "ref_words", "fchr")
+    streams = {a.stream.cuda_stream for a in als}
     return dict(
         tag=run["tag"], sam=sam, reads=n, wall=wall,
         launches=[sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL],
         shapes={f"{L}x{C}": k for (_loc, L, C), k in sw_cuda.SHAPES.items()},
         reduces=rank_ops.REDUCES,
         reduce_s=timers.acc.get("tpReduce", 0.0),
-        reduces_on_own_stream=(set(rank_ops.REDUCE_STREAMS)
-                               <= {al.stream.cuda_stream}),
+        reduces_on_own_stream=set(rank_ops.REDUCE_STREAMS) <= streams,
         dev_bytes=dev_bytes,
         idx_bytes=sum(getattr(al.idx, f).numel() * 8 for f in fields),
         hbm=tp_hbm_per_device(fm, world) if run["mesh"] == "tp" else None,
-        timers=al.timers.render())
+        own_reads=sum(a.metrics.reads for a in als),
+        gather_s=sum(a.timers.acc.get("dataGather", 0.0) for a in als),
+        timers="\n".join(a.timers.render() for a in als))
 
 
 def rank13_capacity(world):
@@ -1990,7 +1998,9 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
     mine, other = rep["launches"][::-1] if local else rep["launches"]
     log(f"[13] ({part}) {tag} rank {rank}: {rep['reads']} reads in "
         f"{rep['wall']:.2f} s = {rep['reads'] / rep['wall']:.1f} reads/s "
-        f"(wall, index load included); records equal the phase's; "
+        f"(wall, index load included; its own blocks {rep['own_reads']} "
+        f"reads, dataGather {rep['gather_s']:.3f} s); records equal the "
+        "phase's; "
         f"{'K2' if local else 'K1'} launches {mine}; REDUCES "
         f"{rep['reduces']}, tpReduce {rep['reduce_s']:.3f} s; index "
         f"{rep['idx_bytes']} bytes on the card (allocated "
@@ -2014,21 +2024,36 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
     return shapes
 
 
-def run_mesh(idx, sets, base, wd):
+def run_mesh(idx, sets, pairs, base, wd):
     """Phase 13 (a)-(c), every rank on cuda:0; returns {path: (kernel tag,
-    launches by (L, C), summed over the ranks)} for the kernels line."""
+    launches by (L, C), summed over the ranks)} for the kernels line.
+    ``pairs``: phase 8's mate files."""
     e2e = dict(idx=idx, fq=sets["e2e"][0], local=False)
     loc = dict(idx=idx, fq=sets["local"][0], local=True)
-    want = {k: (sam_records(base[k][0]), base[k][1]) for k in ("e2e",
-                                                               "local")}
+    pe2e = dict(idx=idx, fq=pairs, local=False)
+    ploc = dict(idx=idx, fq=pairs, local=True)
+    want = {k: (sam_records(base[k][0]), base[k][1]) for k in base}
     # (a) warms its ranks (a few seconds); (b)'s staged reduces would
-    # make a warm-up as long as its first align
+    # make a warm-up as long as its first align. (b)'s tp runs of pairs
+    # take a head only: each gloo reduce costs 78-146 ms, and a batch's
+    # reduces are as many whatever its size
     parts = [
-        ("a", 1, "nccl", True, [dict(e2e, tag="nccl data", mesh="data"),
-                                dict(e2e, tag="nccl tp", mesh="tp")]),
-        ("b", 2, "gloo", False, [dict(e2e, tag="gloo tp", mesh="tp"),
-                                 dict(loc, tag="gloo tp --local", mesh="tp"),
-                                 dict(e2e, tag="gloo data", mesh="data")]),
+        ("a", 1, "nccl", True, [
+            dict(e2e, tag="nccl data", mesh="data"),
+            dict(e2e, tag="nccl tp", mesh="tp"),
+            dict(pe2e, tag="nccl data pairs", mesh="data"),
+            dict(ploc, tag="nccl data pairs --local", mesh="data"),
+            dict(pe2e, tag="nccl tp pairs", mesh="tp")]),
+        ("b", 2, "gloo", False, [
+            dict(e2e, tag="gloo tp", mesh="tp"),
+            dict(loc, tag="gloo tp --local", mesh="tp"),
+            dict(e2e, tag="gloo data", mesh="data"),
+            dict(pe2e, tag="gloo data pairs", mesh="data"),
+            dict(pe2e, tag="gloo tp pairs", mesh="tp", head=N_PAIRS_13),
+            # the second hazard of sharing a placer: two workers, each
+            # over its own aligner, taking batches as they come
+            dict(pe2e, tag="gloo tp pairs -p 2", mesh="tp", head=N_PAIRS_13,
+                 workers=2, batch=N_PAIRS_13 // 2)]),
     ]
     paths = {}
     for part, world, backend, warm, runs in parts:
@@ -2039,12 +2064,17 @@ def run_mesh(idx, sets, base, wd):
                 raise AssertionError(f"[13] ({part}) rank {rank}: "
                                      f"{rep['backend']} on {rep['device']}")
         for i, run in enumerate(runs):
-            k = "local" if run["local"] else "e2e"
+            k = ("paired" if not isinstance(run["fq"], str) else "e2e") + (
+                " --local" if run["local"] else "")
+            recs, shapes = want[k]
+            if run.get("head"):  # the phase's first items' records
+                recs = recs[: run["head"] * (1 if k.startswith("e2e") else 2)]
             total = collections.Counter()
             for rank, rep in enumerate(reports):
                 total.update(check_mesh_run(
-                    part, rep["runs"][i], rank, *want[k], run["local"],
-                    world == 1 or run["mesh"] == "tp"))
+                    part, rep["runs"][i], rank, recs, shapes, run["local"],
+                    (world == 1 or run["mesh"] == "tp")
+                    and not run.get("head")))
             paths[f"mesh {run['tag']}"] = ("K2" if run["local"] else "K1",
                                            dict(total))
         log(f"[13] ({part}) {world} rank(s), {backend} on cuda:0: "
@@ -2076,6 +2106,66 @@ def run_mesh(idx, sets, base, wd):
     log(f"[13] (c) in {time.perf_counter() - t0:.1f} s (processes' start "
         "included)")
     return paths
+
+
+# Phase 14: deep repeats. scripts/torch_deep_repeat_differential.py
+# plants the families and checks the records; the card's run is held to
+# the port's CPU run on N_CPU_DEEP reads, half from each family.
+N_CPU_DEEP = 500
+
+
+def run_deep(wd):
+    """Phase 14: the deep-repeat planting at its defaults (a 2 Mbp genome,
+    families of 50 and 500 exact copies of a 300 bp unit, 2,000 reads of
+    100 bp a family inside the unit), its index built, the reads aligned
+    on the card end to end (a warm run, then a timed one): every read
+    placed on a copy of its family's unit with a consistent record, MAPQ
+    0 or 1, the picks spread over the copies (the script's ``check``),
+    and N_CPU_DEEP reads' records, with the reference's checks 1 and 3,
+    equal to the port's CPU run. Returns the launches by (L, C)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    import torch_deep_repeat_differential as deep
+    from torch_differential import load_records
+
+    dd = os.path.join(wd, "deep")
+    os.makedirs(dd)
+    t0 = time.perf_counter()
+    fa, fq, copy_pos, fam_of, text = deep.plant(dd)
+    idx = os.path.join(dd, "deep.npz")
+    cli.main(["build", fa, idx])
+    log(f"[14] deep repeats: {len(text)} bp genome, families of "
+        f"{deep.DEPTHS} copies of a 300 bp unit, {len(fam_of)} reads; data "
+        f"and index in {time.perf_counter() - t0:.1f} s (host)")
+    sam = os.path.join(dd, "gpu.sam")
+    _recs, _flags, _frac, _wall, _al, shapes = timed_align(
+        14, idx, fq, sam, False, len(fam_of))
+    recs = load_records(sam)
+    per = len(fam_of) // len(deep.DEPTHS)
+    head_names = [n for k, n in enumerate(fam_of)
+                  if k % per < N_CPU_DEEP // len(deep.DEPTHS)]
+    wanted = set(head_names)
+    head = os.path.join(dd, "head.fq")
+    with open(fq) as f, open(head, "w") as out:
+        lines = f.read().splitlines()
+        for k in range(0, len(lines), 4):
+            if lines[k][1:] in wanted:
+                out.write("\n".join(lines[k : k + 4]) + "\n")
+    cpu_sam = os.path.join(dd, "cpu.sam")
+    align(idx, head, cpu_sam, "cpu", False)
+    cpu = load_records(cpu_sam)
+    fails = deep.check(recs, copy_pos, fam_of, text, 300, ref=cpu,
+                       log=lambda m: log(f"[14] {m}"))
+    same = [cpu[n] == recs[n] for n in head_names]
+    log(f"[14] {len(same)} reads ({N_CPU_DEEP // len(deep.DEPTHS)} a family) "
+        f"on cpu (plain versions): {sum(same)} records byte-identical to "
+        "the cuda run's")
+    if not all(same):
+        fails.append(f"{len(same) - sum(same)} records differ from the CPU "
+                     "run's")
+    if fails:
+        raise AssertionError("[14] deep repeats: " + "; ".join(fails))
+    return shapes
 
 
 def main():
@@ -2153,7 +2243,7 @@ def main():
         base["e2e"] = (os.path.join(wd, "gpu_e2e.sam"), shapes)
         shapes, walls["local"] = run_path(6, idx, sets["local"], wd, True)
         count("K2", "local", shapes)
-        base["local"] = (os.path.join(wd, "gpu_local.sam"), shapes)
+        base["e2e --local"] = (os.path.join(wd, "gpu_local.sam"), shapes)
         lidx, lfq, lhead, truth = make_long_data(wd)
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[tag] = run_long(lidx, lfq, lhead, truth, wd, local)
@@ -2162,9 +2252,10 @@ def main():
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[f"paired{int(local)}"] = run_paired(idx, pdata, wd,
                                                               local)
-            count(tag, "paired --local" if local else "paired", shapes)
-            if not local:
-                base["paired"] = (os.path.join(wd, "gpu_pairs0.sam"), shapes)
+            path = "paired --local" if local else "paired"
+            count(tag, path, shapes)
+            base[path] = (os.path.join(wd, f"gpu_pairs{int(local)}.sam"),
+                          shapes)
         shapes10, walls10 = run_overlap(smi, idx, sets["e2e"][0], pdata[0],
                                         wd, base)
         for path in ("e2e -p 2", "paired -p 2", "e2e stream"):
@@ -2177,8 +2268,10 @@ def main():
                 build_s).items():
             count(tag, path, shapes)
         entries["K1"][True]["shapes"].append(run_int64_rows(rng))
-        for path, (tag, shapes) in run_mesh(idx, sets, base, wd).items():
+        for path, (tag, shapes) in run_mesh(idx, sets, pdata[0][1::2], base,
+                                            wd).items():
             count(tag, path, shapes)
+        count("K1", "deep repeats", run_deep(wd))
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")

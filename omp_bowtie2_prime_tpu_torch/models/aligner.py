@@ -62,6 +62,7 @@ from ..utils import rng as refrng
 from ..utils.mapq import mapq_v2_e2e, mapq_v2_local, mapq_v3
 from ..utils.metrics import PhaseTimers, PipelineMetrics
 from ..utils.scoring import SIMPLE_FUNC_SQRT, Scoring, SimpleFunc
+from .pipeline import wait_turn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -860,25 +861,39 @@ class TorchAligner:
         under this batch's host tail; both at once after round 0 when it
         queued no DP.
 
-        On a mesh, the placer's lock holds the batch's collectives
-        together; on a data axis this rank aligns its block of the reads
-        and every rank returns the whole batch's results."""
-        if self.placer is None:
-            with self._on_stream():
-                return self._align_batch(reads, _prebuilt, _predisp,
-                                         _minscs, _next_cb)
+        On a mesh (``_on_mesh``), this rank aligns its block of the
+        reads on a data axis and every rank returns the whole batch's
+        results."""
         pl = self.placer
+        if pl is not None and pl.n_data > 1 and (
+                _prebuilt or _predisp is not None or _minscs is not None
+                or _next_cb is not None):
+            raise ValueError("align_stream's batches are whole: a data "
+                             "axis cuts a batch inside align_batch")
+        return self._on_mesh(reads, lambda rs: self._align_batch(
+            rs, _prebuilt, _predisp, _minscs, _next_cb))
+
+    def _on_mesh(self, items, fn):
+        """``fn(items)``, the batch's results, on this instance's stream.
+        On a mesh: in the batch's turn of a pipeline's stream
+        (``models.pipeline.wait_turn``), under the placer's lock, which
+        holds the batch's collectives together (it is not reentrant:
+        ``fn`` may not come back here), and on a data axis over this
+        rank's contiguous block of the items only (an empty block makes
+        no collective), the blocks' results gathered so that every rank
+        returns the whole batch's in input order (timed ``dataGather``).
+        ``align_batch`` and ``PairedAligner.align_pairs`` both run
+        through it."""
+        pl = self.placer
+        if pl is None:
+            with self._on_stream():
+                return fn(items)
+        wait_turn()
         with pl.lock, self._on_stream():
             if pl.n_data == 1:
-                return self._align_batch(reads, _prebuilt, _predisp,
-                                         _minscs, _next_cb)
-            if _prebuilt or _predisp is not None or _minscs is not None \
-                    or _next_cb is not None:
-                raise ValueError("align_stream's batches are whole: a data "
-                                 "axis cuts a batch inside align_batch")
-            mine = pl.put_batch(reads)
-            part = (self._align_batch(mine, False, None, None, None)
-                    if len(mine) else [])
+                return fn(items)
+            mine = pl.put_batch(items)
+            part = fn(mine) if len(mine) else []
             with self.timers.phase("dataGather"):
                 return pl.gather_batch(part)
 

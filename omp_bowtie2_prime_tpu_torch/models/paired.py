@@ -215,6 +215,16 @@ class PairedAligner:
     # ---------------- main entry ----------------
 
     def align_pairs(self, pairs) -> list[PairResult]:
+        """The pairs' results, in input order. On a mesh, as
+        ``TorchAligner.align_batch`` (``_on_mesh``): on a data axis this
+        rank aligns its contiguous block of pairs, both mates of a pair
+        together, and every rank returns the whole batch's results. A
+        block cannot change a record: a pair's random draws are seeded
+        from its own bases, qualities and names, and its minimum scores
+        are per read."""
+        return self.al._on_mesh(pairs, self._align_pairs)
+
+    def _align_pairs(self, pairs) -> list[PairResult]:
         al, o = self.al, self.al.opts
         npairs = len(pairs)
         reads = []

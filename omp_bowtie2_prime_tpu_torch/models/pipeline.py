@@ -19,6 +19,7 @@ batches carry a sequence number and the writer puts them back in order.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import queue
 import threading
@@ -76,6 +77,59 @@ def align_stream(als, batches, emit_fn=None):
     return results
 
 
+class BatchTurns:
+    """The order in which one stream's numbered batches may make their
+    collectives: batch k's, once the call of every batch before it has
+    returned. ``run_pipeline`` opens one for its workers when it has two
+    or more; an aligner on a mesh waits for its batch's turn
+    (``wait_turn``) before it takes the placer's lock, and an aligner
+    without one never waits. Every rank runs the same stream, so the
+    ranks' collectives meet batch for batch whichever of a rank's workers
+    holds which batch; the placer's lock alone keeps only one rank's
+    batches apart. The JAX package's pipeline has no such order because
+    it needs none: its mesh is one process."""
+
+    _local = threading.local()
+
+    def __init__(self, stopped):
+        self.cv = threading.Condition()
+        self.next = 0  # the first batch whose call has not returned
+        self.ended: set = set()  # later batches whose call has returned
+        self.stopped = stopped  # () -> True once the stream is abandoned
+
+    @contextlib.contextmanager
+    def batch(self, seq: int):
+        """The body runs as batch ``seq`` of the stream."""
+        BatchTurns._local.cur = (self, seq)
+        try:
+            yield
+        finally:
+            BatchTurns._local.cur = None
+            with self.cv:
+                self.ended.add(seq)
+                while self.next in self.ended:
+                    self.ended.discard(self.next)
+                    self.next += 1
+                self.cv.notify_all()
+
+    def wait(self, seq: int) -> None:
+        """Blocks until batch ``seq``'s turn; raises once the stream is
+        abandoned (a stage of the pipeline failed)."""
+        with self.cv:
+            while self.next != seq:
+                if self.stopped():
+                    raise RuntimeError("the batch stream stopped")
+                self.cv.wait(timeout=0.2)
+
+
+def wait_turn() -> None:
+    """Blocks until the calling thread's batch (``BatchTurns.batch``) may
+    make its collectives; returns at once outside a stream's batch."""
+    cur = getattr(BatchTurns._local, "cur", None)
+    if cur is not None:
+        cur[0].wait(cur[1])
+
+
 def run_pipeline(batches, align_fn, emit_fn, depth: int = 2,
                  align_fns=None):
     """batches: iterator of input batches; align_fn(batch) -> results;
@@ -86,11 +140,16 @@ def run_pipeline(batches, align_fn, emit_fn, depth: int = 2,
     align_fns: optional list of align callables, one per align worker
     (each must own its per-batch state); align_fn is ignored when given.
     A single worker runs in the calling thread.
+
+    Two or more workers run each batch as a turn of one ``BatchTurns``:
+    aligners that share a mesh placer make their batches' collectives in
+    input order, on every rank alike.
     """
     fns = list(align_fns) if align_fns else [align_fn]
     in_q: queue.Queue = queue.Queue(maxsize=depth)
     out_q: queue.Queue = queue.Queue(maxsize=depth + len(fns))
     errs: list = []
+    turns = BatchTurns(lambda: bool(errs)) if len(fns) > 1 else None
 
     def put_checked(q, item):
         # bounded put that never deadlocks on a dead consumer: bail as
@@ -148,7 +207,11 @@ def run_pipeline(batches, align_fn, emit_fn, depth: int = 2,
                 if item is _DONE:
                     return
                 seq, b = item
-                results = fn(b)
+                if turns is None:
+                    results = fn(b)
+                else:
+                    with turns.batch(seq):
+                        results = fn(b)
                 if not put_checked(out_q, (seq, b, results)):
                     return
                 counts.append(len(b))

@@ -80,8 +80,11 @@ class MeshPlacer:
     across it (parallel/tp_index.py); a batch cut over
     'data' (when present) into contiguous blocks, as ``P("data")`` cuts
     one in the JAX package. ``lock`` serialises the collectives of the
-    aligners that share this placer inside one process: their calls must
-    come in the same order on every rank."""
+    aligners that share this placer inside one process (``align_batch``
+    and ``PairedAligner.align_pairs`` hold it for a whole batch): their
+    calls must come in the same order on every rank, which
+    ``models.pipeline.run_pipeline`` ensures for its workers
+    (``BatchTurns``: a batch takes the lock in its turn)."""
 
     def __init__(self, mesh: DeviceMesh):
         self.mesh = mesh

@@ -124,9 +124,12 @@ def test_spawned_rank_runs_with_the_jax_package_blocked(tmp_path):
 
 
 def test_no_source_imports_the_jax_package():
-    """Every .py of the port (parallel/ too), and chip_smoke.py: no
-    ``import`` / ``from`` of jax, flax or omp_bowtie2_prime_tpu (other
-    than the port itself)."""
+    """Every .py of the port (parallel/, ops/sw_numpy.py and
+    utils/samcheck.py too), chip_smoke.py and the port's scripts
+    (scripts/torch_*.py): no ``import`` / ``from`` of jax, flax or
+    omp_bowtie2_prime_tpu (other than the port itself). A script may run
+    the JAX CLI as a subprocess (``python -m omp_bowtie2_prime_tpu.cli``)
+    but imports nothing of it."""
     pat = re.compile(
         r"^\s*(?:from|import)\s+(?:jax|flax|omp_bowtie2_prime_tpu)(?![\w])",
         re.M)
@@ -134,10 +137,21 @@ def test_no_source_imports_the_jax_package():
     for d, _dirs, names in os.walk(
             os.path.join(ROOT, "omp_bowtie2_prime_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    scripts = os.path.join(ROOT, "scripts")
+    files += [os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+              if n.startswith("torch_") and n.endswith(".py")]
     assert len(files) > 20
     assert {"mesh.py", "tp_index.py", "distributed.py"} <= {
         os.path.basename(p) for p in files
         if os.path.basename(os.path.dirname(p)) == "parallel"}
+    names = {os.path.relpath(p, ROOT) for p in files}
+    assert {"omp_bowtie2_prime_tpu_torch/ops/sw_numpy.py",
+            "omp_bowtie2_prime_tpu_torch/utils/samcheck.py",
+            "scripts/torch_oracle_check.py", "scripts/torch_differential.py",
+            "scripts/torch_randargs_differential.py",
+            "scripts/torch_deep_repeat_differential.py",
+            "scripts/torch_multichip_bench.py",
+            "scripts/torch_tp_scale_check.py"} <= names
     bad = []
     for path in files:
         with open(path) as f:

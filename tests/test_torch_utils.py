@@ -3,6 +3,7 @@ against the JAX package's originals, on the same inputs. Everything
 compared is an integer, a string or bytes: the tolerance is exact
 equality."""
 
+import dataclasses
 import io
 
 import numpy as np
@@ -483,3 +484,183 @@ def test_distributed_shard_and_merge(tmp_path, nproc, block):
     assert got == (tmp_path / "j.sam").read_text()
     assert [ln.split("\t", 1)[0] for ln in got.splitlines()[2:]] == [
         name for name, n in reads for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def sam_case(tmp_path_factory):
+    """A SAM written by the port end to end (reads with substitutions, low
+    qualities, Ns and 1-3 bp indels, both strands) and its reference."""
+    import torch_dist_workers as workers
+
+    from omp_bowtie2_prime_tpu_torch.index.builder import (
+        build_index_from_text)
+    from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+
+    rng = np.random.default_rng(31)
+    text = rng.integers(0, 4, 5000).astype(np.int8)
+    fm = build_index_from_text(*join_references(["chrS"], [text.copy()]))
+    reads = []
+    for i in range(24):
+        p = int(rng.integers(0, 4700))
+        s = text[p : p + 120].copy()
+        if i % 3 == 0:
+            k = 1 + i % 3
+            s = np.concatenate([s[:60], s[60 + k :]])  # a deletion
+        elif i % 3 == 1:
+            s = np.concatenate([s[:55], rng.integers(0, 4, 2).astype(
+                np.int8), s[55:]])  # an insertion
+        for m in rng.integers(0, len(s), 2):
+            s[m] = (s[m] + 1) % 4
+        if i % 5 == 0:
+            s[int(rng.integers(0, len(s)))] = 4
+        s = tdna.revcomp(s) if i % 2 else s
+        reads.append(tfastq.Read(i, f"r{i}", s,
+                                 rng.integers(2, 41, len(s)).astype(
+                                     np.uint8)))
+    path = str(tmp_path_factory.mktemp("samcheck") / "out.sam")
+    workers.write_sam(path, fm, reads, TorchAligner(
+        fm, device="cpu").align_batch(reads), "omp_bowtie2_prime_tpu_torch")
+    with open(path) as f:
+        recs = [ln.rstrip("\n").split("\t") for ln in f
+                if not ln.startswith("@")]
+    return path, {"chrS": text}, recs
+
+
+def _spoil(f, fault):
+    """A copy of SAM fields ``f`` with one kind of fault."""
+    f = list(f)
+
+    def tag(name, fn):
+        for k, t in enumerate(f[11:], 11):
+            if t.startswith(name + ":"):
+                key, ty, v = t.split(":", 2)
+                f[k] = f"{key}:{ty}:{fn(v)}"
+
+    if fault == "cigar":
+        n = int(f[5].split("M")[0]) if f[5][0].isdigit() else 1
+        f[5] = f[5].replace(f"{n}M", f"{n - 1}M", 1)
+    elif fault == "md":
+        tag("MD", lambda v: v + "A0")
+    elif fault in ("nm", "xm", "xo"):
+        tag(fault.upper(), lambda v: int(v) + 1)
+    elif fault == "as":
+        tag("AS", lambda v: int(v) - 3)
+    elif fault == "overrun":
+        f[3] = str(4990)
+    return f
+
+
+@pytest.mark.parametrize("fault", ["clean", "cigar", "md", "nm", "xm", "xo",
+                                   "as", "overrun"])
+def test_samcheck_check_record(sam_case, fault):
+    """utils/samcheck.py, the port's copy: check_record gives the JAX
+    one's list of faults on every record, clean and with one kind of
+    fault planted, under the scoring that wrote them (where only the
+    planted faults show) and under another."""
+    from omp_bowtie2_prime_tpu.utils import samcheck as jcheck
+    from omp_bowtie2_prime_tpu_torch.utils import samcheck as tcheck
+
+    _path, refs, recs = sam_case
+    aligned = [f for f in recs if not int(f[1]) & 4]
+    assert len(aligned) >= 20
+    assert any("D" in f[5] for f in aligned)
+    assert any("I" in f[5] for f in aligned)
+    found = 0
+    for kw in ({}, dict(mmp_max=4, mmp_min=1, rdg_const=3, rfg_linear=2,
+                        npen=2)):
+        for f in recs:
+            g = _spoil(f, fault)
+            want = jcheck.check_record(g, refs, jscoring.Scoring(**kw))
+            assert tcheck.check_record(g, refs, tscoring.Scoring(**kw)) \
+                == want
+            found += bool(want) and not kw  # AS differs under other scoring
+    if fault == "clean":
+        assert found == 0
+    else:
+        assert found == len(aligned)
+
+
+def test_samcheck_check_sam(sam_case, tmp_path):
+    from omp_bowtie2_prime_tpu.utils import samcheck as jcheck
+    from omp_bowtie2_prime_tpu_torch.utils import samcheck as tcheck
+
+    path, refs, recs = sam_case
+    spoiled = tmp_path / "spoiled.sam"
+    spoiled.write_text("@HD\tVN:1.5\n" + "".join(
+        "\t".join(_spoil(f, ("md", "as", "clean")[i % 3])) + "\n"
+        for i, f in enumerate(recs)))
+    for p in (path, str(spoiled)):
+        got = tcheck.check_sam(p, refs)
+        assert got == jcheck.check_sam(p, refs)
+    n_al, n_clean, kinds = got
+    assert 0 < n_clean < n_al and kinds.get("MD", 0) > 0
+    assert tcheck.parse_cigar("3S10M2I5M1D4M") == jcheck.parse_cigar(
+        "3S10M2I5M1D4M")
+
+
+def _dp_problem(rng, local):
+    """A read, its per-position mismatch penalties, a window that holds it
+    with edits (or not), and random penalties, as the oracles take them."""
+    from omp_bowtie2_prime_tpu.ops import sw as jsw
+    from omp_bowtie2_prime_tpu_torch.ops import sw_numpy as tsw
+
+    L = int(rng.integers(8, 70))
+    W = int(rng.integers(L, L + 40))
+    refw = rng.integers(0, 4, W).astype(np.int8)
+    off = int(rng.integers(0, W - L + 1))
+    read = refw[off : off + L].copy()
+    for m in rng.integers(0, L, int(rng.integers(0, 5))):
+        read[m] = (read[m] + 1) % 4
+    if rng.random() < 0.3:
+        read[int(rng.integers(0, L))] = 4
+    if rng.random() < 0.3:
+        refw[int(rng.integers(0, W))] = 4
+    if rng.random() < 0.4 and L > 20:  # a gap either way
+        k = int(rng.integers(1, 4))
+        cut = int(rng.integers(6, L - 6))
+        read = (np.concatenate([read[:cut], read[cut + k :]])
+                if rng.random() < 0.5 else
+                np.concatenate([read[:cut], rng.integers(0, 4, k).astype(
+                    np.int8), read[cut:]]))
+    pens = rng.integers(2, 7, len(read)).astype(np.int64)
+    kw = dict(rdg_open=int(rng.integers(3, 9)), rdg_ext=int(rng.integers(
+        1, 4)), rfg_open=int(rng.integers(3, 9)), rfg_ext=int(
+        rng.integers(1, 4)), npen=int(rng.integers(0, 3)),
+        gbar=int(rng.integers(1, 6)), ma=int(rng.integers(1, 4)) if local
+        else 0)
+    return read, pens, refw, jsw.SWParams(**kw), tsw.SWParams(**kw)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_sw_numpy_oracles(seed):
+    """ops/sw_numpy.py, the port's copies of the numpy DP oracles: H, E
+    and F of sw_e2e_full_numpy and sw_local_full_numpy, and
+    backtrace_numpy's Alignment at the best and at another end column,
+    equal the JAX package's bit for bit on random problems (16 a seed)."""
+    from omp_bowtie2_prime_tpu.ops import sw as jsw
+    from omp_bowtie2_prime_tpu_torch.ops import sw_numpy as tsw
+
+    rng = np.random.default_rng(seed)
+    for _ in range(16):
+        read, pens, refw, jp, tp = _dp_problem(rng, False)
+        got = tsw.sw_e2e_full_numpy(read, pens, refw, tp)
+        want = jsw.sw_e2e_full_numpy(read, pens, refw, jp)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
+        last = got[0][len(read)]
+        for end in {int(np.argmax(last)), int(rng.integers(len(read),
+                                                           len(refw) + 1))}:
+            a = tsw.backtrace_numpy(read, pens, refw, tp, *got, end)
+            b = jsw.backtrace_numpy(read, pens, refw, jp, *want, end)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        read, pens, refw, jp, tp = _dp_problem(rng, True)
+        got = tsw.sw_local_full_numpy(read, pens, refw, tp)
+        want = jsw.sw_local_full_numpy(read, pens, refw, jp)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert int(got[0].max()) > 0
+    assert tsw.NEG == jsw.NEG
+    assert [f.name for f in dataclasses.fields(tsw.SWParams)] == [
+        f.name for f in dataclasses.fields(jsw.SWParams)]

@@ -1,5 +1,7 @@
 """Ranks of the port's multi-process tests (tests/test_torch_parallel.py,
-test_torch_tp_index.py, test_torch_multihost.py, test_torch_import.py).
+test_torch_tp_index.py, test_torch_multihost.py, test_torch_import.py,
+test_torch_paired_mesh.py) and of scripts/torch_multichip_bench.py and
+scripts/torch_tp_scale_check.py.
 
     python tests/torch_dist_workers.py TASK RANK WORLD PORT DIR
 
@@ -48,14 +50,14 @@ def start_world(task: str, world: int, wd: str):
     return task, wd, procs
 
 
-def collect(handle) -> list:
+def collect(handle, timeout: float = JOIN_TIMEOUT) -> list:
     """Each rank's result of a ``start_world``. Raises with a rank's
-    output if one fails or the world does not end in JOIN_TIMEOUT s."""
+    output if one fails or the world does not end in ``timeout`` s."""
     task, wd, procs = handle
     outs = []
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=JOIN_TIMEOUT)
+            out, _ = p.communicate(timeout=timeout)
             outs.append(out.decode(errors="replace"))
     finally:
         for p in procs:
@@ -73,9 +75,10 @@ def collect(handle) -> list:
     return res
 
 
-def run_world(task: str, world: int, wd: str) -> list:
-    """``collect(start_world(task, world, wd))``."""
-    return collect(start_world(task, world, wd))
+def run_world(task: str, world: int, wd: str,
+              timeout: float = JOIN_TIMEOUT) -> list:
+    """``collect(start_world(task, world, wd), timeout)``."""
+    return collect(start_world(task, world, wd), timeout)
 
 
 def res_tuple(r):
@@ -250,8 +253,249 @@ def task_tp_cuda(inp, rank, world):
                 device=str(al.idx.blocks.device))
 
 
+def pair_reads(spec, cls):
+    """(mate 1, mate 2) Reads of ``cls`` from (name, seq1, qual1, seq2,
+    qual2) tuples."""
+    return [(cls(i, name, s1, q1.copy()), cls(i, name, s2, q2.copy()))
+            for i, (name, s1, q1, s2, q2) in enumerate(spec)]
+
+
+def pair_sam(pkg, fm, pairs, results) -> str:
+    """The records (no header) of paired ``results`` as ``pkg``'s
+    SamWriter writes them, secondary pairings included."""
+    import importlib
+    import io
+
+    sam = importlib.import_module(f"{pkg}.io.sam")
+    out = io.StringIO()
+    w = sam.SamWriter(out, fm.refmap.refnames, fm.refmap.reflens)
+    for (rd1, rd2), p in zip(pairs, results):
+        w.write_pair(rd1, rd2, p.m1, p.m2, p.cat, p.tlen1, p.tlen2,
+                     unique=not p.extras)
+        for e1, e2, t1, t2 in p.extras:
+            w.write_pair(rd1, rd2, e1, e2, p.cat, t1, t2, secondary=True)
+    return out.getvalue()
+
+
+# seconds a pipeline run of task_pairs holds back every other batch
+SKEW = 0.3
+
+
+def _pipeline_runs(fns, batches, reps, rank):
+    """Each of ``reps`` runs of run_pipeline over ``batches`` with one
+    worker a callable of ``fns``: the results, in input order, of every
+    run. In run k a rank holds back batch j for SKEW s before its align
+    call when j + rank + k is even, so that two ranks next to each other
+    would start their batches in opposite orders if nothing ordered
+    them."""
+    import time
+
+    from omp_bowtie2_prime_tpu_torch.models.pipeline import run_pipeline
+
+    def held(fn, k):
+        def call(b):
+            j = next(i for i, x in enumerate(batches) if x is b)
+            if (j + rank + k) % 2 == 0:
+                time.sleep(SKEW)
+            return fn(b)
+        return call
+
+    runs = []
+    for k in range(reps):
+        got = []
+        run_pipeline(iter(batches), None,
+                     lambda b, res: got.extend(res),
+                     align_fns=[held(fn, k) for fn in fns])
+        runs.append(got)
+    return runs
+
+
+def task_pairs(inp, rank, world):
+    """PairedAligner on a mesh ("data": data=WORLD; "tp": data=WORLD/2,
+    model=2): the pairs end to end and --local (a sharer with the local
+    configuration), one pair (a batch smaller than the data axis) and one
+    read through align_batch; then two sharers of the placer as the two
+    workers of run_pipeline (``_pipeline_runs``: neighbouring ranks start
+    their batches in opposite orders), repeated, for align_pairs and for
+    align_batch (the mates as single reads), on the first ``inp["pipe"]``
+    pairs in batches of ``inp["batch"]``. Records as SAM text."""
+    from omp_bowtie2_prime_tpu_torch.io.fastq import Read
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+    from omp_bowtie2_prime_tpu_torch.parallel.mesh import make_mesh
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import make_tp_mesh
+
+    fm = inp["fm"]
+    pkg = "omp_bowtie2_prime_tpu_torch"
+    mesh = (make_mesh(world, device_type="cpu") if inp["mesh"] == "data"
+            else make_tp_mesh(2, n_data=world // 2, device_type="cpu"))
+    al = TorchAligner(fm, device="cpu", mesh=mesh)
+    sc, opts = local_config(pkg)
+    loc = TorchAligner(fm, sc, opts, device="cpu", share=al)
+    pairs = pair_reads(inp["pairs"], Read)
+    blk = al.placer.block(len(pairs))
+    out = dict(block=(blk.start, blk.stop), sharded=al.idx.tp is not None)
+    res = PairedAligner(al).align_pairs(pairs)
+    out["e2e"] = pair_sam(pkg, fm, pairs, res)
+    out["reads_counted"] = al.metrics.reads
+    out["gather_timed"] = al.timers.calls.get("dataGather", 0)
+    out["local"] = pair_sam(pkg, fm, pairs,
+                            PairedAligner(loc).align_pairs(pairs))
+    out["small"] = pair_sam(pkg, fm, pairs[:1],
+                            PairedAligner(al).align_pairs(pairs[:1]))
+    out["small_read"] = [res_tuple(r) for r in al.align_batch(
+        [pairs[0][0]])]
+    al2 = TorchAligner(fm, device="cpu", share=al)
+    nb = inp["batch"]
+    pairs = pairs[: inp["pipe"]]
+    batches = [pairs[i : i + nb] for i in range(0, len(pairs), nb)]
+    out["pipe_pairs"] = [pair_sam(pkg, fm, pairs, got) for got in
+                         _pipeline_runs([PairedAligner(a).align_pairs
+                                         for a in (al, al2)], batches,
+                                        inp["reps"], rank)]
+    reads = [rd for p in pairs for rd in p]
+    batches = [reads[i : i + 2 * nb] for i in range(0, len(reads), 2 * nb)]
+    out["pipe_reads"] = [[res_tuple(r) for r in got] for got in
+                         _pipeline_runs([al.align_batch, al2.align_batch],
+                                        batches, inp["reps"], rank)]
+    return out
+
+
+def rank_backend(device: str, backend, world: int, who: str):
+    """(backend, the ranks' device) of a script's ranks on ``device``
+    ("cuda" or "cpu"): NCCL one rank a card by default on the cards, gloo
+    on the CPU; gloo on the cards puts every rank on cuda:0. Exits with
+    a message where that cannot run."""
+    import torch
+
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{who}: no CUDA device (--device cpu runs "
+                             "gloo ranks on the CPU)")
+        cards = torch.cuda.device_count()
+        if backend == "nccl" and world > cards:
+            raise SystemExit(f"{who}: NCCL takes one rank a card: {world} "
+                             f"ranks, {cards} cards (--backend gloo shares "
+                             "cuda:0)")
+        print(f"{cards} x {torch.cuda.get_device_name(0)}")
+        return backend, "cuda:0" if backend == "gloo" else "cuda"
+    if backend == "nccl":
+        raise SystemExit(f"{who}: nccl needs --device cuda")
+    return backend, "cpu"
+
+
+def sync_device(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def task_bench(inp, rank, world):
+    """scripts/torch_multichip_bench.py: the reads (or pairs) through
+    ``align_batch`` (``align_pairs``) in batches of ``inp["batch"]`` on a
+    data mesh (data=WORLD) or a tp mesh (model=WORLD) on this rank's
+    device: the index load (the aligner's construction) and a warm-up on
+    the first batch apart from the timed loop. Returns the records, the
+    seconds and the counters."""
+    import time
+
+    from omp_bowtie2_prime_tpu_torch.io.fastq import Read
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.parallel.mesh import (make_mesh,
+                                                           mesh_device)
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import make_tp_mesh
+
+    dtype = "cuda" if inp["device"].startswith("cuda") else "cpu"
+    mesh = (make_mesh(world, device_type=dtype) if inp["mesh"] == "data"
+            else make_tp_mesh(world, device_type=dtype))
+    device = mesh_device(mesh)
+    pkg = "omp_bowtie2_prime_tpu_torch"
+    t0 = time.perf_counter()
+    al = TorchAligner(inp["fm"], device=device, mesh=mesh)
+    sync_device(device)
+    load_s = time.perf_counter() - t0
+    if inp["pairs"]:
+        items = pair_reads(inp["items"], Read)
+        fn = PairedAligner(al).align_pairs
+    else:
+        items = _reads(inp["items"])
+        fn = al.align_batch
+    nb = inp["batch"]
+    batches = [items[i : i + nb] for i in range(0, len(items), nb)]
+    fn(batches[0])  # warm-up
+    al.timers.reset()
+    rank_ops.REDUCES = 0
+    sync_device(device)
+    t0 = time.perf_counter()
+    res = [r for b in batches for r in fn(b)]
+    sync_device(device)
+    align_s = time.perf_counter() - t0
+    recs = (pair_sam(pkg, inp["fm"], items, res) if inp["pairs"]
+            else [res_tuple(r) for r in res])
+    return dict(records=recs, load_s=load_s, align_s=align_s,
+                device=str(device), reduces=rank_ops.REDUCES,
+                gather_s=al.timers.acc.get("dataGather", 0.0),
+                reduce_s=al.timers.acc.get("tpReduce", 0.0))
+
+
+def task_tp_scale(inp, rank, world):
+    """scripts/torch_tp_scale_check.py: the index sharded over a model
+    axis of WORLD on this rank's device: the shard's resident bytes,
+    ``shard_index``'s seconds, and one search + resolve of the lanes
+    through the reduces (their count and seconds)."""
+    import time
+
+    import torch
+
+    from omp_bowtie2_prime_tpu_torch.index.closed_form import (
+        homopolymer_index)
+    from omp_bowtie2_prime_tpu_torch.index.format import FMIndex
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.parallel.mesh import mesh_device
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
+        make_tp_mesh, shard_index, tp_hbm_per_device, tp_search_resolve_fn)
+
+    fm = (FMIndex.load(inp["idx"]) if inp["idx"] else
+          homopolymer_index(inp["n"]))
+    dtype = "cuda" if inp["device"].startswith("cuda") else "cpu"
+    mesh = make_tp_mesh(world, device_type=dtype)
+    device = mesh_device(mesh)
+    hbm = tp_hbm_per_device(fm, world)
+    sync_device(device)
+    before = (torch.cuda.memory_allocated(device) if dtype == "cuda"
+              else 0)
+    t0 = time.perf_counter()
+    idx = shard_index(fm, mesh)
+    sync_device(device)
+    shard_s = time.perf_counter() - t0
+    del fm
+    alloc = (torch.cuda.memory_allocated(device) - before if dtype == "cuda"
+             else None)
+    fields = ("blocks", "sa_sample", "ftab", "ref_words", "fchr")
+    seeds, valid, lseed = (torch.from_numpy(inp[k]).to(device)
+                           for k in ("seeds", "valid", "lseed"))
+    fn = tp_search_resolve_fn(idx, mesh, 16, 4)
+    rank_ops.REDUCES = 0
+    sync_device(device)
+    t0 = time.perf_counter()
+    out = fn(idx, seeds, valid, lseed)
+    sync_device(device)
+    search_s = time.perf_counter() - t0
+    return dict(hbm=hbm, bytes=sum(getattr(idx, f).numel() * 8
+                                   for f in fields),
+                allocated=alloc, shard_s=shard_s, search_s=search_s,
+                reduces=rank_ops.REDUCES, rows=(idx.blocks.shape[0],
+                                                idx.sa_sample.shape[0]),
+                out=[t.cpu().numpy() for t in out], device=str(device))
+
+
 TASKS = dict(data=task_data, tp=task_tp, shard=task_shard,
-             blocked=task_blocked, tp_cuda=task_tp_cuda)
+             blocked=task_blocked, tp_cuda=task_tp_cuda, pairs=task_pairs,
+             bench=task_bench, tp_scale=task_tp_scale)
 
 
 def main():
