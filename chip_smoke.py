@@ -50,8 +50,9 @@ Phases, one line each, stamped with the seconds since the start:
      discordant shares, mate 1's placement and the fragment length, the
      rescue's launches at L=160, C=641 (the kernels' wide body) and the
      first pairs' SAM against the CPU run;
-  9. every (L, C) that the runs of phases 5 to 14 launched a kernel at
-     (``sw_cuda.SHAPES``) and that phase 3 did not hold: the kernel
+  9. every (L, C) that the runs of phases 5 to 15 launched a kernel at
+     (``sw_cuda.SHAPES``) and that phase 3 did not hold, and phase 15's
+     direct K1 launches at their batch sizes (``PERF_HOLDS``): the kernel
      against its plain version there too, so that no shape of the main
      paths goes unchecked;
  10. overlap: phase 5's reads and phase 8's pairs (end to end) again with
@@ -123,6 +124,13 @@ Phases, one line each, stamped with the seconds since the start:
      family's unit with a consistent record and MAPQ 0 or 1, the picks
      spread over the copies, reads/s, the walk's LF steps and K1's
      launches, and N_CPU_DEEP reads' records equal to the CPU run's.
+ 15. the measurement scripts (``PERF_SCRIPTS``: torch_bench.py and the
+     scripts/torch_*.py counterparts of the JAX package's bench, profile,
+     roofline, microbench, DP and gather benches, on-chip suite and
+     blockwise build), each called in process at a small size: each
+     must return and print the line that ends its run, the bench one
+     JSON line with a value above 0 and its three modes' records equal;
+     their K1 and K2 launches count with the paths'.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -2168,6 +2176,94 @@ def run_deep(wd):
     return shapes
 
 
+# Phase 15: the measurement scripts, each called in process (its
+# ``main(argv)``) at a size that keeps the phase under a minute: (module,
+# arguments, the ``##`` line that ends its run). The profile's genome is
+# built once in the phase's work directory and read by the three after
+# it. dp_bench's and gather_bench3's direct K1 launches (B problems of
+# L=160 rows, W=224 window columns) are held at those B by phase 9.
+PERF_SIZE = 1_000_000
+PERF_SCRIPTS = (
+    ("torch_bench", ["--reads", "2000", "--max-seconds", "5"], None),
+    ("torch_profile_genome", ["--size", str(PERF_SIZE), "--reads", "20000",
+                              "--batch", "8192", "--iters", "1"], "## best"),
+    ("torch_roofline_searchresolve", ["--size", str(PERF_SIZE), "--batch",
+                                      "4096", "--iters", "2"], "## RATIOS"),
+    ("torch_microbench", ["--size", str(PERF_SIZE)], "## extendDP whole"),
+    ("torch_dp_bench", ["--size", str(PERF_SIZE)], "## mat gathers"),
+    ("torch_gather_bench", ["--big-rows", "3000000"], "## gather [3000000"),
+    ("torch_gather_bench2", ["--k2", "20"], "## [N,17] B=262144"),
+    ("torch_gather_bench3", ["--big-rows", "300000"], "## K1 DP B=16384"),
+    ("torch_onchip_suite", ["--reads", "2000", "--pairs", "1000"],
+     "## total_wall"),
+    ("torch_bigbuild", ["--size", "1000000", "--bmax", "50000",
+                        "--interval", "1"], '{"event": "upload"'),
+)
+PERF_HOLDS = ((16384, 160, 224), (2048, 160, 224))  # K1: (B, L, W)
+
+
+def run_perf_scripts(wd):
+    """Phase 15: every measurement script (torch_bench.py and the
+    scripts/torch_*.py counterparts of the JAX package's performance
+    scripts) on the card through its ``main``: each must return, print
+    its ``##`` lines up to the one that ends its run (the bench: one JSON
+    line with a value above 0), and the bench's three modes must return
+    the same records. Returns the phase's launches by (L, C), K1's and
+    K2's apart."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    import contextlib
+    import importlib
+    import io
+
+    import torch_bench
+
+    pw = os.path.join(wd, "perf")
+    sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
+    sw_cuda.SHAPES.clear()
+    t_phase = time.perf_counter()
+    for name, argv, last in PERF_SCRIPTS:
+        mod = importlib.import_module(name)
+        argv = [*argv, "--device", "cuda"]
+        if "--size" in argv or name == "torch_bigbuild":
+            argv += ["--workdir", pw]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+        lines = buf.getvalue().splitlines()
+        if name == "torch_bench":
+            rec = json.loads(lines[-1])
+            keys = {m: [torch_bench.record_key(r) for r in res]
+                    for m, res in out["results"].items()}
+            if not rec["value"] > 0 or rec["metric"] != torch_bench.METRIC \
+                    or keys["stream"] != keys["single"] \
+                    or keys["pipe"] != keys["single"]:
+                raise AssertionError(f"[15] torch_bench: {rec}, the modes' "
+                                     "records equal: "
+                                     f"{[keys[m] == keys['single'] for m in keys]}")
+            summary = [lines[-1]]
+        else:
+            if not any(ln.startswith(last) for ln in lines):
+                raise AssertionError(f"[15] {name}: no {last!r} line in "
+                                     f"{lines[-5:]}")
+            summary = [ln for ln in lines if ln.startswith(last)]
+        log(f"[15] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+            f"s, {len(lines)} lines")
+        for ln in summary:
+            log(f"[15]   {ln[:200]}")
+    shapes = {tag: collections.Counter() for tag in ("K1", "K2")}
+    for (loc, L, C), n in sw_cuda.SHAPES.items():
+        shapes["K2" if loc else "K1"][(L, C)] += n
+    log(f"[15] the scripts in {time.perf_counter() - t_phase:.1f} s; K1 "
+        f"launches {sw_cuda.LAUNCHES}, K2 {sw_cuda.LAUNCHES_LOCAL}; by (L, "
+        f"C): K1 {dict(shapes['K1'])}, K2 {dict(shapes['K2'])}")
+    for tag in ("K1", "K2"):
+        if not shapes[tag]:
+            raise AssertionError(f"[15] the scripts launched no {tag}")
+    return shapes
+
+
 def main():
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2272,6 +2368,9 @@ def main():
                                             wd).items():
             count(tag, path, shapes)
         count("K1", "deep repeats", run_deep(wd))
+        perf = run_perf_scripts(wd)
+        for tag in ("K1", "K2"):
+            count(tag, "measurement scripts", perf[tag])
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")
@@ -2307,6 +2406,10 @@ def main():
         log(f"[9] {tag}: launched at {len(seen[tag])} shapes on the main "
             f"paths, {len(todo)} of them not held by phase 3: {todo}")
         hold_seen(tag, rng, entries[tag], held[tag], seen[tag])
+        if tag == "K1":  # phase 15's direct launches, at their B
+            for B, L, W in PERF_HOLDS:
+                entries[tag][True]["shapes"].append(hold_case(
+                    tag, rng, f"phase 15 B={B}", B, L, W, {}, phase=9))
         for narrow in (True, False):
             e = entries[tag][narrow]
             e["max_abs_err"] = max(r["max_abs_err"] for r in e["shapes"]

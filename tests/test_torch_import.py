@@ -125,15 +125,17 @@ def test_spawned_rank_runs_with_the_jax_package_blocked(tmp_path):
 
 def test_no_source_imports_the_jax_package():
     """Every .py of the port (parallel/, ops/sw_numpy.py and
-    utils/samcheck.py too), chip_smoke.py and the port's scripts
-    (scripts/torch_*.py): no ``import`` / ``from`` of jax, flax or
-    omp_bowtie2_prime_tpu (other than the port itself). A script may run
+    utils/samcheck.py too), chip_smoke.py, torch_bench.py and the port's
+    scripts (scripts/torch_*.py, the measurement scripts among them): no
+    ``import`` / ``from`` of jax, flax or omp_bowtie2_prime_tpu (other
+    than the port itself). A script may run
     the JAX CLI as a subprocess (``python -m omp_bowtie2_prime_tpu.cli``)
     but imports nothing of it."""
     pat = re.compile(
         r"^\s*(?:from|import)\s+(?:jax|flax|omp_bowtie2_prime_tpu)(?![\w])",
         re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "torch_bench.py")]
     for d, _dirs, names in os.walk(
             os.path.join(ROOT, "omp_bowtie2_prime_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -151,7 +153,14 @@ def test_no_source_imports_the_jax_package():
             "scripts/torch_randargs_differential.py",
             "scripts/torch_deep_repeat_differential.py",
             "scripts/torch_multichip_bench.py",
-            "scripts/torch_tp_scale_check.py"} <= names
+            "scripts/torch_tp_scale_check.py",
+            "torch_bench.py", "scripts/torch_profile_genome.py",
+            "scripts/torch_roofline_searchresolve.py",
+            "scripts/torch_microbench.py", "scripts/torch_dp_bench.py",
+            "scripts/torch_gather_bench.py", "scripts/torch_gather_bench2.py",
+            "scripts/torch_gather_bench3.py",
+            "scripts/torch_onchip_suite.py",
+            "scripts/torch_bigbuild.py"} <= names
     bad = []
     for path in files:
         with open(path) as f:
