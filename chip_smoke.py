@@ -131,6 +131,16 @@ Phases, one line each, stamped with the seconds since the start:
      must return and print the line that ends its run, the bench one
      JSON line with a value above 0 and its three modes' records equal;
      their K1 and K2 launches count with the paths'.
+ 16. (after phase 4) the FM kernels (K3a the seed search, K3b the SA
+     walk, csrc/fm_search.cu) against their plain PyTorch versions on the
+     card (``FM_CASES``: phase 5's index at SA sample rates 8, 16 and 32,
+     phase 4's long index with sub-ftab 22-mers and 10-mers; exact
+     equality), timed, with their bounds (the 32-byte sectors the kernel
+     reads, over the memory rate), and the whole search_resolve_seeds
+     under torch's sync debug mode: no host sync inside it. Every path
+     that aligns on a whole index must launch both (their launches are
+     logged beside K1's and K2's); phase 12 (d) runs them past 2^31 rows;
+     phase 13's tp meshes (a row-sharded index) must launch neither.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -139,7 +149,8 @@ phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
 
 Then one JSON line describing the kernels (each DP kernel's narrow and
 wide body is an entry of its own, with its own time, bound and launches,
-the launches also by path) and, last, the result line.
+the launches also by path; K3a and K3b an entry each) and, last, the
+result line.
 Exits non-zero, printing no result, on any failure, without a CUDA
 device, or without the package beside it. Imports no JAX.
 """
@@ -163,7 +174,7 @@ from omp_bowtie2_prime_tpu_torch import cli, native  # noqa: E402
 from omp_bowtie2_prime_tpu_torch.index.closed_form import (  # noqa: E402
     homopolymer_index)
 from omp_bowtie2_prime_tpu_torch.ops import (  # noqa: E402
-    _build, sw, sw_cuda, walk)
+    _build, fm_cuda, seed_search, sw, sw_cuda, walk)
 
 SEED = 20261016
 GENOME_BP = 4_600_000
@@ -209,7 +220,22 @@ KERNELS = {
         # best-cell key 5 (compare, shift, or, max, select), the stop bit 3
         ops_per_cell=38,
     ),
+    # the FM kernels replace XLA device code (no pl.pallas_call): the
+    # search's fori_loop of LF range steps and the walk's loop of steps
+    "K3a": dict(
+        name="fm_search", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/seed_search.py:31",
+        device_kernel="fm_search_kernel"),
+    "K3b": dict(
+        name="fm_walk", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/walk.py:19",
+        device_kernel="fm_walk_kernel"),
 }
+# K3a's and K3b's launches of every counted run (``counted``, phase 13's
+# ranks, phase 15), which main attributes to the paths in turn
+FM_TOTAL: collections.Counter = collections.Counter()
 
 _ASCII = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -758,6 +784,191 @@ def make_long_data(wd):
                            [len(x) for x in seqs])
 
 
+# Phase 16: the FM kernels against their plain versions on the card:
+# (label, index: phase 5's or phase 4's long one, SA sample rate (16 a
+# .bt2 import's, 32 -o 5's, by subsampling), seed length, share of
+# left-aligned sub-ftab seeds, seed lanes: the grid's chunk for a batch
+# of 8,192 reads, 2^18)
+FM_CASES = (
+    ("phase 5, 22-mers, srate 8", "e2e", 8, 22, 0.0, 1 << 18),
+    ("phase 5, 22-mers, srate 16", "e2e", 16, 22, 0.0, 1 << 18),
+    ("phase 5, 22-mers, srate 32", "e2e", 32, 22, 0.0, 1 << 18),
+    ("long, 22-mers with sub-ftab, srate 8", "long", 8, 22, 0.3, 1 << 18),
+    ("long, 10-mers, srate 8", "long", 8, 10, 0.3, 1 << 16),
+)
+
+
+def fm_seeds(rng, text, S, L, short_frac):
+    """int64 seed codes [S, L] as the grid gathers them: L-mers of the
+    text, 15% with a substitution, 5% with an N, 10% random; the first
+    ``short_frac`` of them left-aligned with 1 to L - 1 bases (-1 padded
+    on the right)."""
+    pos = rng.integers(0, len(text) - L, S)
+    seeds = text[pos[:, None] + np.arange(L)[None, :]].astype(np.int64)
+    u = rng.random(S)
+    col = rng.integers(0, L, S)
+    mut = u < 0.15
+    seeds[mut, col[mut]] = (seeds[mut, col[mut]] + 1) % 4
+    nn = (u >= 0.15) & (u < 0.2)
+    seeds[nn, col[nn]] = 4
+    rnd = (u >= 0.2) & (u < 0.3)
+    seeds[rnd] = rng.integers(0, 4, (int(rnd.sum()), L))
+    nshort = int(S * short_frac)
+    if nshort:
+        lens = rng.integers(1, L, nshort)
+        seeds[:nshort][np.arange(L)[None, :] >= lens[:, None]] = -1
+    return torch.from_numpy(seeds).cuda()
+
+
+def search_bytes(idx, seeds, valid, sub_ftab):
+    """Bytes K3a must move on these inputs: the seeds, valid and the two
+    outputs once, the two ftab words of an alive lane (two 32-byte
+    sectors), and for each range end an LF step updates, the sectors of
+    the BWT words below the end's in-block offset k (ceil(k / 64)) and of
+    its occ count (one), as the kernel reads them; the lanes' ranges come
+    from a run of the plain version."""
+    S, L = seeds.shape
+    sectors = [0]
+
+    def on_step(upd, top, bot):
+        for r in (top, bot):
+            sectors[0] += int((((r[upd] & 1023) + 63) // 64 + 1).sum())
+
+    seed_search.search_seeds_plain(idx, seeds, valid, sub_ftab,
+                                   on_step=on_step)
+    alive = valid & ~(seeds == 4).any(dim=-1)
+    ftab = 2 * int(alive.sum()) if L >= idx.ftab_k else 0
+    return (seeds.numel() * seeds.element_size() + S + 16 * S
+            + 32 * (sectors[0] + ftab + 1))
+
+
+def walk_bytes(idx, rows, valid):
+    """Bytes K3b must move on these inputs: rows, valid and the offsets
+    once, and per step of a live lane the sectors the kernel reads: the
+    row's mark word; on a hit the bitmap's words up to it, the rank
+    checkpoint and the SA sample's word; on a miss the BWT words up to the
+    row's own and its occ count. The steps come from the plain walk."""
+    from omp_bowtie2_prime_tpu_torch.ops import rank as fm_rank
+
+    row, live, sectors = rows.clone(), valid.clone(), 0
+    for _ in range(idx.srate):
+        marked, _rnk, nxt = fm_rank.walk_step(idx, row)
+        k = row & 1023
+        hit, miss = marked & live, ~marked & live
+        sectors += int(((68 + k[hit] // 32) // 4 - 16 + 2).sum())
+        sectors += int((k[miss] // 64 + 3).sum())
+        live = miss
+        row = torch.where(miss, nxt, row)
+    return 17 * rows.shape[0] + 32 * sectors
+
+
+def fm_hold(tag, label, fn, plain, nbytes):
+    """One FM kernel on one input: ``fn()`` against ``plain()`` bit for
+    bit (the plain version's one call timed), ``fn`` timed over 20
+    launches, and its bound from ``nbytes``. Returns the case's row."""
+    got = fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = plain()
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((g - w).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    if err != 0 or any(g.shape != w.shape for g, w in zip(got, want)):
+        bad = [int((g != w).sum()) for g, w in zip(got, want)]
+        raise AssertionError(f"{tag} kernel != plain at {label}: max err "
+                             f"{err}, differing lanes by output {bad}")
+    ms = time_ms(fn, 20)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"[16] {tag} {label}: {got[0].shape[0]} lanes, kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes: "
+        f"{nbytes}), max_abs_err {err} (tolerance: exact)")
+    return dict(label=label, lanes=got[0].shape[0], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                max_abs_err=err)
+
+
+def check_fm(idx_paths, rng):
+    """Phase 16: K3a and K3b against their plain versions bit for bit on
+    the cases of FM_CASES (the walk on the rows the round samples from
+    the kernel's ranges, range_cap 16, every slot of the round's), timed,
+    with their bounds; on the first case the whole search_resolve_seeds
+    with torch's sync debug mode set to raise (first shown to raise on an
+    int() of a device value): no host sync inside it, and its results
+    equal the plain composition's. Returns the entries of the kernels
+    line (launches filled in by the paths)."""
+    from omp_bowtie2_prime_tpu_torch.index.format import FMIndex, GpuIndex
+    from omp_bowtie2_prime_tpu_torch.utils import dna
+
+    t_phase = time.perf_counter()
+    rows = {"K3a": [], "K3b": []}
+    hosts = {}
+    for n, (label, which, srate, L, short, S) in enumerate(FM_CASES):
+        if which not in hosts:
+            fm = FMIndex.load(idx_paths[which])
+            hosts[which] = (fm, dna.unpack_2bit(fm.ref_words, fm.n))
+        fm, text = hosts[which]
+        idx = GpuIndex.from_host(fm.subsample_sa(srate), "cuda")
+        seeds = fm_seeds(rng, text, S, L, short)
+        valid = torch.from_numpy(rng.random(S) < 0.95).cuda()
+        lseed = torch.from_numpy(rng.integers(0, 1 << 32, S)).cuda()
+        sub = short > 0
+        rows["K3a"].append(fm_hold(
+            "K3a", label, lambda: fm_cuda.search_seeds(idx, seeds, valid, sub),
+            lambda: seed_search.search_seeds_plain(idx, seeds, valid, sub),
+            search_bytes(idx, seeds, valid, sub)))
+        top, bot = fm_cuda.search_seeds(idx, seeds, valid, sub)
+        starts, r, live, nlive = seed_search.sample_rows(
+            top, bot, 16, 1.0, 0, lseed)
+        rows["K3b"].append(fm_hold(
+            "K3b", label,
+            lambda: fm_cuda.resolve_rows(idx, r, live),
+            lambda: walk.resolve_rows_plain(idx, r, live, nlive),
+            walk_bytes(idx, r, live)))
+        if n == 0:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                try:
+                    int(valid.sum())
+                    caught = False
+                except RuntimeError:
+                    caught = True
+                got = seed_search.search_resolve_seeds(
+                    idx, seeds, valid, 16, 1.0, 0, sub, lane_seed=lseed)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = (top, bot, starts,
+                    walk.resolve_rows_plain(idx, r, live, nlive))
+            if not caught or not all(torch.equal(g, w)
+                                     for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"[16] search_resolve_seeds: sync debug mode caught an "
+                    f"int(): {caught}; equal to the plain composition: "
+                    f"{[torch.equal(g, w) for g, w in zip(got, want)]}")
+            log(f"[16] search_resolve_seeds ({label}): no host sync inside "
+                "it (torch's sync debug mode set to raise, which raised on "
+                "an int() of a device value just before); its four outputs "
+                "equal the plain composition's")
+        del idx
+    log(f"[16] in {time.perf_counter() - t_phase:.1f} s")
+    return {tag: dict(
+        name=KERNELS[tag]["name"], route=KERNELS[tag]["route"],
+        source=KERNELS[tag]["source"], replaces=KERNELS[tag]["replaces"],
+        launches=0, max_abs_err=max(x["max_abs_err"] for x in rows[tag]),
+        ms=rows[tag][0]["ms"], plain_ms=rows[tag][0]["plain_ms"],
+        bound_ms=rows[tag][0]["bound_ms"], bound_by="bytes",
+        # no single PyTorch call computes an FM backward search or an SA
+        # walk; the yardstick is a dependent chain of row gathers
+        # (scripts/torch_roofline_searchresolve.py)
+        library_ms=None, device_kernel=KERNELS[tag]["device_kernel"],
+        launches_by_path={}, shapes=rows[tag]) for tag in rows}
+
+
 def sam_records(path):
     with open(path) as f:
         return [ln for ln in f.read().splitlines() if not ln.startswith("@")]
@@ -772,14 +983,27 @@ def align(idx, fq, sam, device, local, flags=()):
                     + (["--local"] if local else []))
 
 
+def zero_fm_counts():
+    fm_cuda.LAUNCHES_SEARCH = fm_cuda.LAUNCHES_WALK = 0
+    fm_cuda.STREAMS.clear()
+
+
+def fm_counts():
+    """(K3a, K3b) launches since ``zero_fm_counts``, added to FM_TOTAL."""
+    got = (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK)
+    FM_TOTAL.update(K3a=got[0], K3b=got[1])
+    return got
+
+
 def counted(run):
     """run() on the card, every launch count set to 0 just before it and
-    read just after: (wall seconds, (K1, K2) launches, launches by (L,
-    C), launches by CUDA stream, native finisher batches, run()'s
-    result)."""
+    read just after: (wall seconds, (K1, K2, K3a, K3b) launches, DP
+    launches by (L, C), every kernel's launches by CUDA stream, native
+    finisher batches, run()'s result)."""
     sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
     sw_cuda.SHAPES.clear()
     sw_cuda.STREAMS.clear()
+    zero_fm_counts()
     native.FINISH_CALLS = 0
     walk.STEPS = 0
     torch.cuda.synchronize()
@@ -787,9 +1011,11 @@ def counted(run):
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (wall, (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL),
+    streams = collections.Counter(sw_cuda.STREAMS)
+    streams.update(fm_cuda.STREAMS)
+    return (wall, (sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL) + fm_counts(),
             {(L, C): n for (_loc, L, C), n in sw_cuda.SHAPES.items()},
-            dict(sw_cuda.STREAMS), native.FINISH_CALLS, out)
+            dict(streams), native.FINISH_CALLS, out)
 
 
 def timed_align(phase, idx, fq, sam, local, n_reads, flags=(), warm=True):
@@ -798,8 +1024,8 @@ def timed_align(phase, idx, fq, sam, local, n_reads, flags=(), warm=True):
     and the counters (the walk's LF steps among them); returns
     (records, flags column, aligned fraction, wall seconds, the aligner,
     the timed run's launches by (L, C)). Fails if the run launched no
-    kernel of its mode, launched the other mode's, or bypassed the native
-    finisher."""
+    kernel of its mode or no FM kernel, launched the other mode's, or
+    bypassed the native finisher."""
     if warm:
         align(idx, fq, sam, "cuda", local, flags)  # first run: warm caches
     wall, launches, shapes, _streams, finishes, al = counted(
@@ -813,7 +1039,8 @@ def timed_align(phase, idx, fq, sam, local, n_reads, flags=(), warm=True):
         f"on cuda: {n_reads} reads in {wall:.2f} s = {n_reads / wall:.1f} "
         "reads/s (wall, index "
         f"load included); aligned {100 * frac:.2f}%; K1 launches "
-        f"{launches[0]}, K2 launches {launches[1]}; native finisher "
+        f"{launches[0]}, K2 launches {launches[1]}, K3a launches "
+        f"{launches[2]}, K3b launches {launches[3]}; native finisher "
         f"{'used' if finishes else 'NOT used'} ({finishes} batches); walk "
         f"LF steps {walk.STEPS}")
     log(f"[{phase}]   launches by (L, C): "
@@ -821,10 +1048,13 @@ def timed_align(phase, idx, fq, sam, local, n_reads, flags=(), warm=True):
     for line in al.timers.render().splitlines():
         log(f"[{phase}]   {line}")
     log(f"[{phase}]   {al.metrics.render()}")
-    mine, other = (launches[1], launches[0]) if local else launches
+    mine, other = (launches[1], launches[0]) if local else launches[:2]
     tag = "local" if local else "end-to-end"
     if mine <= 0:
         raise AssertionError(f"the {tag} run launched no kernel of its own")
+    if min(launches[2:]) <= 0:
+        raise AssertionError(f"the {tag} run launched K3a {launches[2]} and "
+                             f"K3b {launches[3]} times")
     if other != 0:
         raise AssertionError(f"the {tag} run launched the other DP kernel")
     if not finishes:
@@ -926,8 +1156,9 @@ def run_overlap(smi, idx, fq, pinputs, wd, base):
     warm run of -p 2 (and of the stream), then three rounds of timed runs
     of -p 1, -p 2 and, end to end, align_stream: each run's SAM records
     must be base's byte for byte, its K1 launches by (L, C) base's (and
-    no K2 launch), the -p 2 and stream runs' launches on their two
-    aligners' streams, neither the default stream. Logs reads/s (median
+    no K2 launch, and K3a and K3b launched), the -p 2 and stream runs'
+    launches (the DP's and the FM kernels') on their two aligners'
+    streams, neither the default stream. Logs reads/s (median
     and range) and a -p 2 run's timers. Returns ({"path kind": launches
     by (L, C)}, {"path kind": median wall seconds})."""
     default = torch.cuda.default_stream().cuda_stream
@@ -961,8 +1192,8 @@ def run_overlap(smi, idx, fq, pinputs, wd, base):
                         f"{i} of {len(want)} ({len(recs)} written): "
                         f"{recs[i][:200] if i < len(recs) else None!r} vs "
                         f"{want[i][:200] if i < len(want) else None!r}")
-                if launches != (sum(ref_shapes.values()), 0) \
-                        or shapes != ref_shapes:
+                if launches[:2] != (sum(ref_shapes.values()), 0) \
+                        or shapes != ref_shapes or min(launches[2:]) <= 0:
                     raise AssertionError(
                         f"{path} {kind}: launches {launches}, by shape "
                         f"{shapes}; -p 1: {ref_shapes}")
@@ -1262,23 +1493,24 @@ def write_input_formats(wd, fq):
 def option_run(phase_tag, idx, inputs, sam, flags, n_items, local, smi):
     """One align on the card with the CLI's options (``counted``): logs
     reads/s, the launches and the phase timers. Fails if the run launched
-    no kernel of its mode, launched the other mode's, or bypassed the
-    native finisher. Returns (records, launches by (L, C), the aligner,
-    wall seconds)."""
+    no kernel of its mode or no FM kernel, launched the other mode's, or
+    bypassed the native finisher. Returns (records, launches by (L, C),
+    the aligner, wall seconds)."""
     wall, launches, shapes, _streams, finishes, al = counted(
         lambda: cli.main(["align", "-x", idx, *inputs, "-S", sam,
                           "--device", "cuda", *flags]))
     log(f"[11] ({phase_tag}) {' '.join(flags)}: {n_items} reads in "
         f"{wall:.2f} s = {n_items / wall:.1f} reads/s (wall, index load "
         f"included; {smi}); K1 launches {launches[0]}, K2 launches "
-        f"{launches[1]}; native finisher batches {finishes}")
+        f"{launches[1]}, K3a {launches[2]}, K3b {launches[3]}; native "
+        f"finisher batches {finishes}")
     log(f"[11]   launches by (L, C): " + ", ".join(
         f"{L}x{C}: {n}" for (L, C), n in sorted(shapes.items())))
     for line in al.timers.render().splitlines():
         log(f"[11]   {line}")
     log(f"[11]   {al.metrics.render()}")
-    mine, other = (launches[1], launches[0]) if local else launches
-    if mine <= 0 or other != 0 or not finishes:
+    mine, other = (launches[1], launches[0]) if local else launches[:2]
+    if mine <= 0 or other != 0 or not finishes or min(launches[2:]) <= 0:
         raise AssertionError(f"line ({phase_tag}): launches {launches}, "
                              f"native finisher batches {finishes}")
     return sam_records(sam), shapes, al, wall
@@ -1558,7 +1790,8 @@ def run_int64_rows(rng):
     """Phase 12 (d): the closed-form index of A^n at POLY_A_N (past
     INT32_ROW_LIMIT rows) built on the host, uploaded through
     GpuIndex.from_host, its FM ops held to the closed form on the card
-    (``poly_a_checks``, a million rows) and K1 held to its plain version on
+    (``poly_a_checks``, a million rows; the search and the walk through K3a
+    and K3b) and K1 held to its plain version on
     64 problems whose windows were gathered past 2^31 (reads from those
     windows with 3 substitutions, random reads against the A^n windows).
     Frees the index. Returns K1's case row."""
@@ -1585,10 +1818,16 @@ def run_int64_rows(rng):
         f"host arrays {host_gb:.2f} GB built in {t1 - t0:.1f} s; on the card "
         f"{dev_gb:.2f} GB ({100 * dev_gb * 1e9 / torch.cuda.get_device_properties(0).total_memory:.1f}% of it), "
         f"from_host {t2 - t1:.1f} s")
+    zero_fm_counts()
     wins, lanes = poly_a_checks(idx, n, rng, 1 << 20)
+    held = (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK)
     log(f"[12] (d) equal to the closed form: " + ", ".join(
         f"{k} {v}" for k, v in lanes.items()) + " lanes; "
-        f"in {time.perf_counter() - t2:.1f} s")
+        f"in {time.perf_counter() - t2:.1f} s; search_seeds and resolve_rows "
+        f"through K3a and K3b ({held[0]} and {held[1]} launches)")
+    if min(held) <= 0:
+        raise AssertionError("[12] (d) the FM ops past 2^31 rows did not run "
+                             f"the FM kernels: {held}")
     # 48 problems on the hashed text's windows past 2^31 (full length),
     # 16 on A^n's (8 of them at the text's end, shorter)
     L, W = 160, 200
@@ -1818,6 +2057,7 @@ def rank13_align(run, world, rank, wd, device):
     timers = PhaseTimers()
     sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
     sw_cuda.SHAPES.clear()
+    zero_fm_counts()
     rank_ops.REDUCES = 0
     rank_ops.REDUCE_STREAMS.clear()
     torch.cuda.synchronize()
@@ -1866,6 +2106,7 @@ def rank13_align(run, world, rank, wd, device):
     return dict(
         tag=run["tag"], sam=sam, reads=n, wall=wall,
         launches=[sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL],
+        fm_launches=[fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK],
         shapes={f"{L}x{C}": k for (_loc, L, C), k in sw_cuda.SHAPES.items()},
         reduces=rank_ops.REDUCES,
         reduce_s=timers.acc.get("tpReduce", 0.0),
@@ -1904,6 +2145,7 @@ def rank13_capacity(world):
     t2 = time.perf_counter()
     boundary = idx.tp.nblk_loc * DEV_OCC_BLOCK  # rank 1's first row
     rank_ops.REDUCES = 0
+    zero_fm_counts()
     _wins, lanes = poly_a_checks(idx, n, np.random.default_rng(SEED + 13),
                                  N_ROWS_13, split=(boundary, 1 << 31))
     del _wins
@@ -1914,7 +2156,8 @@ def rank13_capacity(world):
     torch.cuda.empty_cache()
     return dict(build_s=t1 - t0, shard_s=t2 - t1, check_s=t3 - t2,
                 dev_bytes=dev, hbm=hbm, rows=rows, boundary=boundary,
-                lanes=lanes, reduces=rank_ops.REDUCES)
+                lanes=lanes, reduces=rank_ops.REDUCES,
+                fm_launches=[fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK])
 
 
 def rank13_main(spec_path, rank):
@@ -1992,7 +2235,9 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
     equal; on a tp mesh reduces on the aligner's stream and the shard's
     bytes those tp_hbm_per_device gives; the kernel of the mode launched
     (at the phase's shapes where the work is replicated, as it is at one
-    rank and on a model axis), the other not. Logs the rank's numbers."""
+    rank and on a model axis), the other not; the FM kernels launched on
+    a data mesh (a whole index) and never on a tp mesh (a sharded index
+    takes the plain FM ops). Logs the rank's numbers."""
     tag = rep["tag"]
     got = sam_records(rep["sam"])
     if got != want_recs:
@@ -2009,7 +2254,8 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
         f"(wall, index load included; its own blocks {rep['own_reads']} "
         f"reads, dataGather {rep['gather_s']:.3f} s); records equal the "
         "phase's; "
-        f"{'K2' if local else 'K1'} launches {mine}; REDUCES "
+        f"{'K2' if local else 'K1'} launches {mine}, K3a and K3b "
+        f"{rep['fm_launches']}; REDUCES "
         f"{rep['reduces']}, tpReduce {rep['reduce_s']:.3f} s; index "
         f"{rep['idx_bytes']} bytes on the card (allocated "
         f"{rep['dev_bytes']})"
@@ -2018,6 +2264,10 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
         log(f"[13]   {line}")
     if mine <= 0 or other != 0:
         raise AssertionError(f"[13] {tag}: launches {rep['launches']}")
+    if (min(rep["fm_launches"]) <= 0 if rep["hbm"] is None
+            else any(rep["fm_launches"])):
+        raise AssertionError(f"[13] {tag} ({'tp' if rep['hbm'] else 'data'}"
+                             f" mesh): K3a and K3b {rep['fm_launches']}")
     if replicated and shapes != want_shapes:
         raise AssertionError(f"[13] {tag}: launches by (L, C) {shapes} "
                              f"against the phase's {want_shapes}")
@@ -2083,6 +2333,8 @@ def run_mesh(idx, sets, pairs, base, wd):
                     part, rep["runs"][i], rank, recs, shapes, run["local"],
                     (world == 1 or run["mesh"] == "tp")
                     and not run.get("head")))
+                FM_TOTAL.update(dict(zip(("K3a", "K3b"),
+                                         rep["runs"][i]["fm_launches"])))
             paths[f"mesh {run['tag']}"] = ("K2" if run["local"] else "K1",
                                            dict(total))
         log(f"[13] ({part}) {world} rank(s), {backend} on cuda:0: "
@@ -2096,10 +2348,10 @@ def run_mesh(idx, sets, pairs, base, wd):
         c = rep["capacity"]
         # the shard's arrays, within the allocator's 2 MiB rounding each
         if abs(c["dev_bytes"] - hbm["tp_sharded"]) > 5 * (2 << 20) \
-                or c["reduces"] <= 0:
+                or c["reduces"] <= 0 or any(c["fm_launches"]):
             raise AssertionError(f"[13] (c) rank {rank}: {c['dev_bytes']} "
                                  f"bytes against {hbm}, {c['reduces']} "
-                                 "reduces")
+                                 f"reduces, FM kernels {c['fm_launches']}")
         log(f"[13] (c) A^n, n = {POLY_A_N}, sharded over 2 gloo ranks: rank "
             f"{rank} holds {c['rows'][0]} block records and {c['rows'][1]} "
             f"SA rows, {c['dev_bytes'] / 1e9:.3f} GB on the card against "
@@ -2110,7 +2362,9 @@ def run_mesh(idx, sets, pairs, base, wd):
         log(f"[13] (c) rank {rank}: equal to the closed form at rows from "
             f"0, from the shard boundary (row {c['boundary']}) and from "
             "2^31: " + ", ".join(f"{k} {v}" for k, v in c["lanes"].items())
-            + f" lanes; {c['reduces']} reduces in {c['check_s']:.1f} s")
+            + f" lanes; {c['reduces']} reduces in {c['check_s']:.1f} s, "
+            "through the plain FM ops (K3a and K3b launched "
+            f"{c['fm_launches']} times)")
     log(f"[13] (c) in {time.perf_counter() - t0:.1f} s (processes' start "
         "included)")
     return paths
@@ -2209,7 +2463,7 @@ def run_perf_scripts(wd):
     its ``##`` lines up to the one that ends its run (the bench: one JSON
     line with a value above 0), and the bench's three modes must return
     the same records. Returns the phase's launches by (L, C), K1's and
-    K2's apart."""
+    K2's apart; its K3a and K3b launches go to FM_TOTAL."""
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "scripts"))
     import contextlib
@@ -2221,6 +2475,7 @@ def run_perf_scripts(wd):
     pw = os.path.join(wd, "perf")
     sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
     sw_cuda.SHAPES.clear()
+    zero_fm_counts()
     t_phase = time.perf_counter()
     for name, argv, last in PERF_SCRIPTS:
         mod = importlib.import_module(name)
@@ -2255,12 +2510,16 @@ def run_perf_scripts(wd):
     shapes = {tag: collections.Counter() for tag in ("K1", "K2")}
     for (loc, L, C), n in sw_cuda.SHAPES.items():
         shapes["K2" if loc else "K1"][(L, C)] += n
+    fm = fm_counts()
     log(f"[15] the scripts in {time.perf_counter() - t_phase:.1f} s; K1 "
-        f"launches {sw_cuda.LAUNCHES}, K2 {sw_cuda.LAUNCHES_LOCAL}; by (L, "
-        f"C): K1 {dict(shapes['K1'])}, K2 {dict(shapes['K2'])}")
+        f"launches {sw_cuda.LAUNCHES}, K2 {sw_cuda.LAUNCHES_LOCAL}, K3a "
+        f"{fm[0]}, K3b {fm[1]}; by (L, C): K1 {dict(shapes['K1'])}, K2 "
+        f"{dict(shapes['K2'])}")
     for tag in ("K1", "K2"):
         if not shapes[tag]:
             raise AssertionError(f"[15] the scripts launched no {tag}")
+    if min(fm) <= 0:
+        raise AssertionError(f"[15] the scripts launched K3a and K3b {fm}")
     return shapes
 
 
@@ -2310,6 +2569,16 @@ def main():
             line += (f", {blocks * wpb} warps an SM in blocks of {wpb}"
                      + (" (L=1024, C=1057)" if body else ""))
         log(line)
+    for blk in report.split("Compiling entry function")[1:]:
+        fm = re.search(r"(fm_search_kernel|fm_walk_kernel)(I[al]E)?", blk)
+        nums = re.search(r"(\d+) bytes spill stores.*?Used (\d+) registers",
+                         blk, re.S)
+        if fm and nums:
+            seeds = {"Ia": "int8 seeds", "Il": "int64 seeds"}.get(
+                (fm.group(2) or "")[:2], "")
+            log(f"[2]   {'K3a' if 'search' in fm.group(1) else 'K3b'} "
+                f"{fm.group(1)} {seeds}: {nums.group(2)} registers, "
+                f"{nums.group(1)} bytes spilled")
     if "--sass" in sys.argv[1:]:
         sass_row(lib, -(-201 // 32))  # the narrow shape's strip width
     if native.get_lib() is None:
@@ -2330,20 +2599,34 @@ def main():
             e["launches_by_path"][path] = n
             e["launches"] += n
 
+    fm_seen, fm_paths = collections.Counter(), {"K3a": {}, "K3b": {}}
+
+    def count_fm(path):
+        """The FM kernels' launches since the last call (FM_TOTAL), as
+        ``path``'s."""
+        for tag in fm_paths:
+            fm_paths[tag][path] = FM_TOTAL[tag] - fm_seen[tag]
+            fm_seen[tag] = FM_TOTAL[tag]
+
     wd = tempfile.mkdtemp(prefix="bt2torch_smoke_")
     try:
         idx, sets, text, build_s = make_data(wd)
         walls, base = {}, {}
         shapes, walls["e2e"] = run_path(5, idx, sets["e2e"], wd, False)
         count("K1", "e2e", shapes)
+        count_fm("e2e")
         base["e2e"] = (os.path.join(wd, "gpu_e2e.sam"), shapes)
         shapes, walls["local"] = run_path(6, idx, sets["local"], wd, True)
         count("K2", "local", shapes)
+        count_fm("local")
         base["e2e --local"] = (os.path.join(wd, "gpu_local.sam"), shapes)
         lidx, lfq, lhead, truth = make_long_data(wd)
+        fm_entries = check_fm({"e2e": idx, "long": lidx},
+                              np.random.default_rng(SEED + 16))
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[tag] = run_long(lidx, lfq, lhead, truth, wd, local)
             count(tag, "long --local" if local else "long --overhang", shapes)
+        count_fm("long")
         pdata = make_paired_data(wd, text)
         for tag, local in (("K1", False), ("K2", True)):
             shapes, walls[f"paired{int(local)}"] = run_paired(idx, pdata, wd,
@@ -2352,25 +2635,32 @@ def main():
             count(tag, path, shapes)
             base[path] = (os.path.join(wd, f"gpu_pairs{int(local)}.sam"),
                           shapes)
+        count_fm("paired")
         shapes10, walls10 = run_overlap(smi, idx, sets["e2e"][0], pdata[0],
                                         wd, base)
         for path in ("e2e -p 2", "paired -p 2", "e2e stream"):
             count("K1", path, shapes10[path])
+        count_fm("overlap (-p 1, -p 2, stream)")
         for line, shapes in run_options(idx, sets, pdata, wd, smi, rng,
                                         entries, held).items():
             count("K2" if line == "c" else "K1", f"options ({line})", shapes)
+        count_fm("options")
         for path, (tag, shapes) in run_index_surface(
                 wd, os.path.join(wd, "genome.fa"), idx, text, sets,
                 build_s).items():
             count(tag, path, shapes)
+        count_fm("index surface")
         entries["K1"][True]["shapes"].append(run_int64_rows(rng))
         for path, (tag, shapes) in run_mesh(idx, sets, pdata[0][1::2], base,
                                             wd).items():
             count(tag, path, shapes)
+        count_fm("mesh (data meshes; tp meshes take the plain FM ops)")
         count("K1", "deep repeats", run_deep(wd))
+        count_fm("deep repeats")
         perf = run_perf_scripts(wd)
         for tag in ("K1", "K2"):
             count(tag, "measurement scripts", perf[tag])
+        count_fm("measurement scripts")
         if want_profile:
             prof_sam = os.path.join(wd, "prof.sam")
             trace = os.path.join(wd, "trace.json")
@@ -2417,6 +2707,13 @@ def main():
             if e["launches"] <= 0:
                 raise AssertionError(f"{e['name']} was launched on no path")
             kernels.append(e)
+    for tag, e in fm_entries.items():
+        e["launches_by_path"] = fm_paths[tag]
+        e["launches"] = sum(fm_paths[tag].values())
+        log(f"[16] {tag}: launches by path {fm_paths[tag]}")
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']} was launched on no path")
+        kernels.append(e)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

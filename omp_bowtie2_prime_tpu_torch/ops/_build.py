@@ -109,5 +109,20 @@ def get_lib(csrc: str = CSRC) -> ctypes.CDLL:
             lib.sw_local_backtrace_launch.argtypes = (
                 [P] * 5 + [I] * 3 + [I] * 7 + [P, P, I, P, Z, P]
             )
+            # the FM kernels (csrc/fm_search.cu); a copy of csrc/ without
+            # that source (scripts/torch_dp_variants.py) builds the DPs only
+            LL = ctypes.c_longlong
+            if hasattr(lib, "fm_search_launch"):
+                # seeds, seed bytes, valid, (B, L), blocks, nblocks, fchr,
+                # ftab, nftab, zoff, nrows, ftab_k, sub_ftab, top, bot,
+                # stream
+                lib.fm_search_launch.restype = I
+                lib.fm_search_launch.argtypes = (
+                    [P, I, P, I, I, P, LL, P, P, LL, LL, LL, I, I, P, P, P])
+                # rows, valid, R, blocks, nblocks, fchr, sa, nsa, zoff,
+                # srate, out, stream
+                lib.fm_walk_launch.restype = I
+                lib.fm_walk_launch.argtypes = (
+                    [P, P, I, P, LL, P, P, LL, LL, I, P, P])
             _libs[csrc] = lib
         return _libs[csrc]

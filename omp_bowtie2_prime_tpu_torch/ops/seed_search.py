@@ -30,7 +30,24 @@ def search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
     Seeds of length >= ftab_k are right-aligned and start with an ftab
     jump on their last k chars; with sub_ftab, shorter seeds are
     left-aligned and start from the full row range [0, nrows). Returns
-    (top, bot) int64 [B]; empty lanes have top == bot == 0."""
+    (top, bot) int64 [B]; empty lanes have top == bot == 0. A whole index
+    takes the hand-written search kernel (ops/fm_cuda.py: the kernel on
+    CUDA tensors, ``search_seeds_plain`` on CPU ones), a row-sharded one
+    (``idx.tp``) the plain version on any device: its reduce a step cannot
+    run inside a kernel."""
+    if idx.tp is not None:
+        return search_seeds_plain(idx, seeds, valid, sub_ftab)
+    from . import fm_cuda
+
+    return fm_cuda.search_seeds(idx, seeds, valid, sub_ftab)
+
+
+def search_seeds_plain(idx, seeds: torch.Tensor, valid: torch.Tensor,
+                       sub_ftab: bool = False, on_step=None):
+    """``search_seeds`` in plain torch: one ``rank.lf_range`` (a few dozen
+    small launches) a step. ``on_step(upd, top, bot)``, if given, sees
+    each step's updated lanes and the range they update (the kernel's
+    reads, for its bound)."""
     seeds = seeds.to(torch.int64)
     B, L = seeds.shape
     k = idx.ftab_k
@@ -65,6 +82,8 @@ def search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
         c = seeds[:, pos]
         live = bot > top
         upd = live & (c >= 0) & ((pos < ftab_hi) | short)
+        if on_step is not None:
+            on_step(upd, top, bot)
         ntop, nbot = rank.lf_range(idx, c, top, bot)
         bot = torch.where(upd, nbot, torch.where(live, bot, top))
         top = torch.where(upd, ntop, top)
@@ -129,23 +148,19 @@ def _mix32(a, b):
     return x ^ (x >> 16)
 
 
-def search_resolve_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
-                         cap: int, expand: float = 4,
-                         sample_seed: int | None = 0,
-                         sub_ftab: bool = False,
-                         lane_seed: torch.Tensor | None = None):
-    """Fused seed search + SA resolution.
-
-    Each seed's min(width, cap) SA rows are compacted into int(S*expand)
-    slots and resolved; ranges wider than cap draw cap distinct rows by
-    stratified sampling keyed on (range, sample_seed, lane_seed), in a
-    pseudorandom stratum order. Returns (top, bot, starts, offs) with
-    seed s's offsets at offs[starts[s] : starts[s] + min(width, cap)]."""
-    from .walk import resolve_rows
-
-    top, bot = search_seeds(idx, seeds, valid, sub_ftab)
-    S = seeds.shape[0]
-    dev = seeds.device
+def sample_rows(top, bot, cap: int, expand: float = 4,
+                sample_seed: int | None = 0,
+                lane_seed: torch.Tensor | None = None):
+    """The SA rows to resolve of S seed ranges [top, bot): each range's
+    min(width, cap) rows compacted into int(S*expand) slots; ranges wider
+    than cap draw cap distinct rows by stratified sampling keyed on
+    (range, sample_seed, lane_seed), in a pseudorandom stratum order.
+    Returns (starts [S], rows [rmax], live [rmax], nlive): seed s's rows at
+    slots [starts[s], starts[s] + min(width, cap)), the live slots the
+    prefix [0, nlive), nlive a 0-d tensor (0 for S = 0) that nothing here
+    reads on the host."""
+    S = top.shape[0]
+    dev = top.device
     wfull = bot - top
     width = wfull.clamp(max=cap)
     rmax = int(S * expand)
@@ -182,6 +197,24 @@ def search_resolve_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
         h = _mix32(hbase, (j + 1) & M32)
         pick = lo + h % span.clamp(min=1)
         rows_flat = to + torch.where(wo > cap, pick, k)
-    nlive = int(min(int(ends[S - 1]), rmax)) if S else 0
+    nlive = ends[S - 1].clamp(max=rmax) if S else 0
+    return starts, rows_flat, live, nlive
+
+
+def search_resolve_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
+                         cap: int, expand: float = 4,
+                         sample_seed: int | None = 0,
+                         sub_ftab: bool = False,
+                         lane_seed: torch.Tensor | None = None):
+    """Fused seed search + SA resolution: ``search_seeds``, the rows of
+    ``sample_rows``, ``walk.resolve_rows``. Returns (top, bot, starts,
+    offs) with seed s's offsets at offs[starts[s] : starts[s] + min(width,
+    cap)]. On a whole index on the card it makes no host sync: two kernel
+    launches and the sampling's torch ops, all on the current stream."""
+    from .walk import resolve_rows
+
+    top, bot = search_seeds(idx, seeds, valid, sub_ftab)
+    starts, rows_flat, live, nlive = sample_rows(top, bot, cap, expand,
+                                                 sample_seed, lane_seed)
     offs = resolve_rows(idx, rows_flat, live, nlive=nlive)
     return top, bot, starts, offs

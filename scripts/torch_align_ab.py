@@ -35,7 +35,7 @@ def gen(wd):
     import chip_smoke
 
     os.makedirs(wd, exist_ok=True)
-    idx, sets, text = chip_smoke.make_data(wd)
+    idx, sets, text, _build_s = chip_smoke.make_data(wd)
     pairs = chip_smoke.make_paired_data(wd, text)[0]
     with open(os.path.join(wd, "data.json"), "w") as f:
         json.dump({"idx": idx, "e2e": sets["e2e"][0], "pairs": pairs,

@@ -1,13 +1,14 @@
 """The hand-written Hopper DP kernels (end-to-end and local) against their
 plain PyTorch versions, on the card, at the narrow shapes (a row in the
 warp's registers) and the wide ones (column tiles, a warp each: L up to
-1024, C past 288), a paired align on the card against the same align on
-the CPU, and two aligners on two CUDA streams (-p 2, align_stream, many
-small batches through two workers) against one, and CLI option lines
-(orientation bans, dense seeds below the ftab width, other penalties, -k
-and -a, pairs with --nofw) on the card against the CPU. The kernels have
-no CPU mode: these tests skip without a CUDA device. The file imports no
-JAX, so it runs where JAX is absent:
+1024, C past 288), the FM kernels (the seed search K3a and the SA walk
+K3b, ops/fm_cuda.py) against theirs, a paired align on the card against
+the same align on the CPU, and two aligners on two CUDA streams (-p 2,
+align_stream, many small batches through two workers) against one, and
+CLI option lines (orientation bans, dense seeds below the ftab width,
+other penalties, -k and -a, pairs with --nofw) on the card against the
+CPU. The kernels have no CPU mode: these tests skip without a CUDA
+device. The file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -835,5 +836,228 @@ def test_tp_mesh_of_two_ranks_on_one_card(cuda, tmp_path):
     for got in ranks:
         assert got["results"] == one
         assert got["reduces"] > 0 and got["launches"] > 0
+        assert got["fm_launches"] == 0  # the sharded index runs plain
         assert got["rows"] == -(-nbd // 2)
         assert got["device"] == "cuda:0"
+
+
+# ---------------- the FM kernels: K3a (search) and K3b (walk) ----------------
+
+_FM_CACHE = {}
+
+
+def _fm_index(n, ftab_k, srate=8):
+    """A random genome of n bases with a 60-base unit planted every n // 40
+    bases (seed ranges wider than a cap) and its index, built once a
+    process: (text, FMIndex). srate past 8 subsamples the SA sample, as
+    -o and a .bt2 import's srate 16 give it."""
+    from omp_bowtie2_prime_tpu_torch.index.builder import (
+        build_index_from_text)
+    from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
+
+    key = (n, ftab_k)
+    if key not in _FM_CACHE:
+        rng = np.random.default_rng(n + ftab_k)
+        text = rng.integers(0, 4, n).astype(np.int8)
+        unit = rng.integers(0, 4, 60).astype(np.int8)
+        for p in range(100, n - 100, n // 40):
+            text[p : p + 60] = unit
+        _FM_CACHE[key] = (text, build_index_from_text(
+            *join_references(["g"], [text.copy()]), ftab_k=ftab_k))
+    text, fm = _FM_CACHE[key]
+    return text, fm.subsample_sa(srate)
+
+
+def _fm_seeds(text, rng, S, L, short_frac=0.0):
+    """Seeds cut from the text (some mutated, 5% with an N, 10% random),
+    right-aligned; with short_frac, left-aligned right-padded ones of 1 to
+    L - 1 bases too."""
+    n = len(text)
+    pos = rng.integers(0, n - L, S)
+    seeds = text[pos[:, None] + np.arange(L)[None, :]].copy()
+    u = rng.random(S)
+    col = rng.integers(0, L, S)
+    mut = u < 0.15
+    seeds[mut, col[mut]] = (seeds[mut, col[mut]] + 1) % 4
+    nn = (u >= 0.15) & (u < 0.2)
+    seeds[nn, col[nn]] = 4
+    rnd = (u >= 0.2) & (u < 0.3)
+    seeds[rnd] = rng.integers(0, 4, (int(rnd.sum()), L))
+    nshort = int(S * short_frac)
+    if nshort:
+        lens = rng.integers(1, L, nshort)
+        seeds[:nshort][np.arange(L)[None, :] >= lens[:, None]] = -1
+    return seeds.astype(np.int8)
+
+
+def _fm_search_held(idx, seeds, valid, sub_ftab):
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search
+
+    want = seed_search.search_seeds_plain(idx, seeds, valid, sub_ftab)
+    n0 = fm_cuda.LAUNCHES_SEARCH
+    got = fm_cuda.search_seeds(idx, seeds, valid, sub_ftab)
+    torch.cuda.synchronize()
+    assert fm_cuda.LAUNCHES_SEARCH == n0 + (seeds.shape[0] > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int64])
+@pytest.mark.parametrize("L", [22, 10])
+@pytest.mark.parametrize("ftab_k", [10, 12])
+def test_fm_search_matches_plain(cuda, ftab_k, L, dtype):
+    """K3a against search_seeds_plain bit for bit: 22-mers (an ftab jump
+    and 10-12 LF steps) and 10-mers (below or at the ftab width), with
+    and without sub-ftab lanes; seeds with N and padding, dead lanes, B
+    not a multiple of a block's 8 warps."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+
+    text, fm = _fm_index(200_000, ftab_k)
+    idx = GpuIndex.from_host(fm, cuda)
+    rng = np.random.default_rng(ftab_k * 100 + L)
+    B = 30_001
+    for sub_ftab in (False, True):
+        seeds = _fm_seeds(text, rng, B, L, 0.3 if sub_ftab else 0.0)
+        valid = rng.random(B) < 0.9
+        valid[1000:1100] = False  # a run of dead lanes
+        top, bot = _fm_search_held(
+            idx, torch.from_numpy(seeds).to(dtype).to(cuda),
+            torch.from_numpy(valid).to(cuda), sub_ftab)
+        assert int((bot > top).sum()) > B // 2  # most lanes found ranges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [0, 1, 7, 9])
+def test_fm_search_few_and_dead_lanes(cuda, B):
+    """K3a at B = 0 and B below and past one block, all lanes dead (not
+    valid, or holding an N) and all alive."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+
+    text, fm = _fm_index(200_000, 10)
+    idx = GpuIndex.from_host(fm, cuda)
+    rng = np.random.default_rng(B)
+    seeds = torch.from_numpy(_fm_seeds(text, rng, B, 22)).to(cuda)
+    for valid in (torch.zeros(B, dtype=torch.bool, device=cuda),
+                  torch.ones(B, dtype=torch.bool, device=cuda)):
+        _fm_search_held(idx, seeds, valid, False)
+    with_n = seeds.clone()
+    with_n[:, 3] = 4
+    top, bot = _fm_search_held(
+        idx, with_n, torch.ones(B, dtype=torch.bool, device=cuda), True)
+    assert not top.any() and not bot.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("srate", [8, 16, 32])
+def test_fm_walk_matches_plain(cuda, srate):
+    """K3b against resolve_rows_plain bit for bit at srate 8 (built), 16
+    (a .bt2 import) and 32 (-o 5), on random rows, rows at and around
+    zoff and nrows (past the last row too: a garbage lane) and 0, dead
+    lanes and R not a multiple of a block; every valid row of the index
+    resolves within srate steps."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
+
+    text, fm = _fm_index(200_000, 10, srate)
+    idx = GpuIndex.from_host(fm, cuda)
+    assert idx.srate == srate
+    rng = np.random.default_rng(srate)
+    R = 100_003
+    rows = rng.integers(0, fm.nrows, R)
+    edges = [0, 1, fm.zoff - 1, fm.zoff, fm.zoff + 1, fm.nrows - 2,
+             fm.nrows - 1, fm.nrows, fm.nrows + 5]
+    rows[: len(edges)] = edges
+    valid = rng.random(R) < 0.9
+    valid[: len(edges)] = True
+    d_rows = torch.from_numpy(rows).to(cuda)
+    d_valid = torch.from_numpy(valid).to(cuda)
+    want = walk.resolve_rows_plain(idx, d_rows, d_valid)
+    n0, s0 = fm_cuda.LAUNCHES_WALK, walk.STEPS
+    got = fm_cuda.resolve_rows(idx, d_rows, d_valid)
+    torch.cuda.synchronize()
+    assert fm_cuda.LAUNCHES_WALK == n0 + 1 and walk.STEPS == s0 + srate
+    assert torch.equal(got, want)
+    off = got.cpu().numpy()
+    assert (off[valid & (rows < fm.nrows)] >= 0).all()
+    assert (off[~valid] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_seed,cap", [(0, 16), (7, 12), (None, 16)])
+def test_fm_search_resolve_at_2_20_lanes(cuda, sample_seed, cap):
+    """The whole search_resolve_seeds at 2^20 seed lanes (the grid's chunk,
+    grid_lanes_cap) through both kernels against the plain composition
+    (search_seeds_plain, sample_rows, resolve_rows_plain tiled to nlive),
+    with ranges wider than cap (the planted unit), the stratified
+    sampling's two branches (cap 16 and 12) and per-lane seeds; inside it
+    no host sync (torch's sync debug mode raises on one)."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search, walk
+
+    text, fm = _fm_index(200_000, 10)
+    idx = GpuIndex.from_host(fm, cuda)
+    rng = np.random.default_rng(20)
+    S = 1 << 20
+    seeds = torch.from_numpy(_fm_seeds(text, rng, S, 22)).to(torch.int64)
+    seeds = seeds.to(cuda)
+    valid = torch.from_numpy(rng.random(S) < 0.95).to(cuda)
+    lseed = torch.from_numpy(rng.integers(0, 1 << 32, S)).to(cuda)
+    torch.cuda.synchronize()
+    n0 = (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode catches an int()
+            int(valid.sum())
+        got = seed_search.search_resolve_seeds(
+            idx, seeds, valid, cap, 1.0, sample_seed, False, lane_seed=lseed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK) == (n0[0] + 1,
+                                                                n0[1] + 1)
+    top, bot = seed_search.search_seeds_plain(idx, seeds, valid)
+    starts, rows, live, nlive = seed_search.sample_rows(
+        top, bot, cap, 1.0, sample_seed, lseed)
+    offs = walk.resolve_rows_plain(idx, rows, live, nlive)
+    for g, w in zip(got, (top, bot, starts, offs)):
+        assert torch.equal(g, w)
+    assert int(((bot - top) > cap).sum()) > 1000  # the sampling ran
+    assert int((offs >= 0).sum()) > S // 4
+
+
+@pytest.mark.cuda
+def test_fm_kernels_two_streams_at_once(cuda):
+    """-p 2's case: two streams each launching the search and the walk,
+    over and over, against one stream's results; the launches counted by
+    stream."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search
+
+    text, fm = _fm_index(200_000, 10)
+    idx = GpuIndex.from_host(fm, cuda)
+    rng = np.random.default_rng(22)
+    sets = []
+    for _ in range(2):
+        seeds = torch.from_numpy(_fm_seeds(text, rng, 65_536, 22)).to(cuda)
+        valid = torch.ones(65_536, dtype=torch.bool, device=cuda)
+        sets.append((seeds, valid))
+    wants = [seed_search.search_resolve_seeds(idx, s, v, 16, 1.0)
+             for s, v in sets]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    fm_cuda.STREAMS.clear()
+    for _ in range(3):
+        gots = []
+        for st, (s, v) in zip(streams, sets):
+            with torch.cuda.stream(st):
+                gots.append(seed_search.search_resolve_seeds(idx, s, v, 16,
+                                                             1.0))
+    for st in streams:
+        st.synchronize()
+    for got, want in zip(gots, wants):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert sorted(fm_cuda.STREAMS.values()) == [6, 6]
+    assert set(fm_cuda.STREAMS) == {st.cuda_stream for st in streams}

@@ -238,8 +238,10 @@ def task_blocked(inp, rank, world):
 
 def task_tp_cuda(inp, rank, world):
     """Ranks sharing one GPU through gloo: a model=WORLD mesh on the card,
-    the reads aligned end to end; the reduces and K1's launches."""
+    the reads aligned end to end; the reduces, K1's launches and the FM
+    kernels' (none: a sharded index takes the plain FM ops)."""
     from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
     from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
     from omp_bowtie2_prime_tpu_torch.ops import sw_cuda
     from omp_bowtie2_prime_tpu_torch.parallel.tp_index import make_tp_mesh
@@ -247,10 +249,12 @@ def task_tp_cuda(inp, rank, world):
     al = TorchAligner(inp["fm"], device="cuda",
                       mesh=make_tp_mesh(world, device_type="cuda"))
     rank_ops.REDUCES = sw_cuda.LAUNCHES = 0
+    fm_cuda.LAUNCHES_SEARCH = fm_cuda.LAUNCHES_WALK = 0
     res = [res_tuple(r) for r in al.align_batch(_reads(inp["reads"]))]
     return dict(results=res, reduces=rank_ops.REDUCES,
                 launches=sw_cuda.LAUNCHES, rows=al.idx.blocks.shape[0],
-                device=str(al.idx.blocks.device))
+                device=str(al.idx.blocks.device),
+                fm_launches=fm_cuda.LAUNCHES_SEARCH + fm_cuda.LAUNCHES_WALK)
 
 
 def pair_reads(spec, cls):
