@@ -134,10 +134,18 @@ Phases, one line each, stamped with the seconds since the start:
  16. (after phase 4) the FM kernels (K3a the seed search, K3b the SA
      walk, csrc/fm_search.cu) against their plain PyTorch versions on the
      card (``FM_CASES``: phase 5's index at SA sample rates 8, 16 and 32,
-     phase 4's long index with sub-ftab 22-mers and 10-mers; exact
-     equality), timed, with their bounds (the 32-byte sectors the kernel
-     reads, over the memory rate), and the whole search_resolve_seeds
-     under torch's sync debug mode: no host sync inside it. Every path
+     phase 4's long index with sub-ftab 22-mers and 10-mers, lanes
+     whose first LF step sits deep in its record or at the edges of the
+     kernels' loads and masks, and a random BWT of a human genome's 3.1 G
+     rows built on the card, whose 1.55 GB of records pass the L2; exact
+     equality), timed L2-warm (20
+     launches in a row) and L2-cold (the median of 20, each after
+     overwriting 512 MiB), with their layout-free bounds (the 32-byte
+     sectors of the bases, marks and counts a step's answer depends on,
+     over the memory rate) and the share of them reached, the device
+     records' bytes (phase 5's index, the A^n index), and the whole
+     search_resolve_seeds under torch's sync debug mode: no host sync
+     inside it. Every path
      that aligns on a whole index must launch both (their launches are
      logged beside K1's and K2's); phase 12 (d) runs them past 2^31 rows;
      phase 13's tp meshes (a row-sharded index) must launch neither.
@@ -788,14 +796,34 @@ def make_long_data(wd):
 # (label, index: phase 5's or phase 4's long one, SA sample rate (16 a
 # .bt2 import's, 32 -o 5's, by subsampling), seed length, share of
 # left-aligned sub-ftab seeds, seed lanes: the grid's chunk for a batch
-# of 8,192 reads, 2^18)
+# of 8,192 reads, 2^18, and where the first LF step's rows sit in their
+# records: anywhere (None), deep ("deep": k >= 896, the search's last
+# loads and the walk's last bitmap words) or at FM_EDGE_OFFSETS
+# ("edges"); for those two the walk starts at rows of the same offsets)
 FM_CASES = (
-    ("phase 5, 22-mers, srate 8", "e2e", 8, 22, 0.0, 1 << 18),
-    ("phase 5, 22-mers, srate 16", "e2e", 16, 22, 0.0, 1 << 18),
-    ("phase 5, 22-mers, srate 32", "e2e", 32, 22, 0.0, 1 << 18),
-    ("long, 22-mers with sub-ftab, srate 8", "long", 8, 22, 0.3, 1 << 18),
-    ("long, 10-mers, srate 8", "long", 8, 10, 0.3, 1 << 16),
+    ("phase 5, 22-mers, srate 8", "e2e", 8, 22, 0.0, 1 << 18, None),
+    ("phase 5, 22-mers, srate 16", "e2e", 16, 22, 0.0, 1 << 18, None),
+    ("phase 5, 22-mers, srate 32", "e2e", 32, 22, 0.0, 1 << 18, None),
+    ("long, 22-mers with sub-ftab, srate 8", "long", 8, 22, 0.3, 1 << 18,
+     None),
+    ("long, 10-mers, srate 8", "long", 8, 10, 0.3, 1 << 16, None),
+    ("phase 5, 22-mers from k >= 896, srate 8", "e2e", 8, 22, 0.0, 1 << 16,
+     "deep"),
+    ("phase 5, 22-mers from k in {0, 15, 16, 127, 128, 1023}, srate 8",
+     "e2e", 8, 22, 0.0, 1 << 16, "edges"),
+    ("a random BWT of a human genome's 3.1 G rows (records past the L2), "
+     "22-mers read off it, srate 8", "random", 8, 22, 0.0, 1 << 18, None),
 )
+# rows of the "random" case's index (random_bwt_index): GRCh38's 3.1 G
+RANDOM_BWT_ROWS = 3_100_000_000
+# in-block offsets at the edges of K3's loads and pair masks: no BWT
+# word below the row, part of the first word, the first whole word, the
+# last base of the first two 16-byte loads, exactly two loads, every word
+FM_EDGE_OFFSETS = (0, 15, 16, 127, 128, 1023)
+# bytes overwritten before each L2-cold launch: ten times the H100's
+# 50 MB L2, and long enough a fill (~0.2 ms) to keep the card busy while
+# the host enqueues the launch, so the events time the launch alone
+L2_FLUSH_BYTES = 512 << 20
 
 
 def fm_seeds(rng, text, S, L, short_frac):
@@ -820,19 +848,169 @@ def fm_seeds(rng, text, S, L, short_frac):
     return torch.from_numpy(seeds).cuda()
 
 
+def fm_offset_seeds(rng, text, fm, S, L, offsets):
+    """int64 seed codes [S, L]: L-mers of the text whose ftab range [top,
+    bot) (the rows of the first LF step) sits in its records at
+    ``offsets``: "deep", top and bot both at k >= 896; "edges", top or
+    bot at each of FM_EDGE_OFFSETS, S / 6 lanes an offset."""
+    k, n = fm.ftab_k, len(text) - L
+    q = np.zeros(n, np.int64)
+    for j in range(L - k, L):
+        q = q * 4 + text[j : j + n].clip(0, 3)
+    top = fm.ftab_top[q].astype(np.int64) & 1023
+    bot = fm.ftab_bot[q].astype(np.int64) & 1023
+    pools = ([np.flatnonzero((top >= 896) & (bot >= 896))]
+             if offsets == "deep" else
+             [np.flatnonzero((top == e) | (bot == e))
+              for e in FM_EDGE_OFFSETS])
+    pos = np.concatenate([rng.choice(p, -(-S // len(pools)))
+                          for p in pools])[:S]
+    return torch.from_numpy(
+        text[pos[:, None] + np.arange(L)[None, :]].astype(np.int64)).cuda()
+
+
+def fm_offset_rows(rng, nrows, R, offsets):
+    """R rows of the index at ``offsets`` in their records ("deep": 896 to
+    1023; "edges": FM_EDGE_OFFSETS in turn)."""
+    blk = rng.integers(0, nrows // 1024, R)
+    off = (rng.integers(896, 1024, R) if offsets == "deep" else
+           np.resize(np.array(FM_EDGE_OFFSETS), R))
+    return torch.from_numpy(blk * 1024 + off).cuda()
+
+
+def random_bwt_index(nrows, rng, device, srate=8, ftab_k=10, chunk=1 << 20):
+    """A GpuIndex of ``nrows`` rows over a random BWT (no text's), built on
+    ``device``: random 2-bit bases (an A at zoff, the dummy the zoff rule
+    discounts; zeros past the last row), their occ counts at each record's
+    start, fchr from their totals, a random SA-mark bitmap (each row
+    marked with chance 1 / srate, a power of two; zoff marked) with its
+    ranks, a random SA sample, and the ftab from a plain search of every
+    ftab_k-mer. LF maps rows onto rows as in a text's index, so searches
+    of the seeds ``lf_seeds`` reads off it stay alive as a genome's do
+    and walks end at marks: it times K3 on records that do not fit the L2
+    (a human genome's 3.1 G rows: 1.55 GB of records)."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import rank
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(0, 1 << 62)))
+    nrec = -(-nrows // 1024)
+    zoff = int(rng.integers(0, nrows))
+    blocks = torch.empty((nrec, 128), dtype=torch.int32, device=device)
+    blocks[:, 100:] = 0
+    counts = torch.empty((nrec, 4), dtype=torch.int64, device=device)
+    marks = torch.empty(nrec, dtype=torch.int64, device=device)
+    for lo in range(0, nrec, chunk):
+        hi = min(lo + chunk, nrec)
+
+        def words(n):
+            return torch.randint(0, 1 << 32, (hi - lo, n), generator=gen,
+                                 device=device, dtype=torch.int64)
+
+        base = (lo * 1024 + torch.arange(0, 1024, 16, device=device)
+                + 1024 * torch.arange(hi - lo, device=device)[:, None])
+        limits = rank._pair_limit_mask((nrows - base).clamp(0, 16))
+        bwt = words(64) & limits * 3  # zeros past the last row
+        for c in range(4):
+            counts[lo:hi, c] = rank._count_pairs_eq(
+                bwt, torch.full((hi - lo,), c, device=device), limits)
+        mk = words(32)
+        for _ in range(srate.bit_length() - 2):
+            mk &= words(32)
+        mbase = (lo * 1024 + torch.arange(0, 1024, 32, device=device)
+                 + 1024 * torch.arange(hi - lo, device=device)[:, None])
+        mk &= (1 << (nrows - mbase).clamp(0, 32)) - 1
+        marks[lo:hi] = rank.popcount32(mk).sum(dim=1)
+        blocks[lo:hi, :64] = bwt.to(torch.int32)
+        blocks[lo:hi, 68:100] = mk.to(torch.int32)
+    # the dummy at zoff: an A, as an index stores it; zoff is marked
+    r, k = zoff >> 10, zoff & 1023
+    w = int(blocks[r, k >> 4]) & rank.M32
+    counts[r, (w >> (2 * (k & 15))) & 3] -= 1
+    counts[r, 0] += 1
+    blocks[r, k >> 4] = _i32(w & ~(3 << (2 * (k & 15))))
+    m = int(blocks[r, 68 + (k >> 5)]) & rank.M32
+    if not (m >> (k & 31)) & 1:
+        blocks[r, 68 + (k >> 5)] = _i32(m | (1 << (k & 31)))
+        marks[r] += 1
+    cp = torch.cumsum(counts, 0) - counts
+    blocks[:, 64:68] = _i32(cp)
+    blocks[:, 100] = _i32(torch.cumsum(marks, 0) - marks)
+    tot = counts.sum(0)
+    fchr = torch.zeros(5, dtype=torch.int64, device=device)
+    fchr[0] = 1
+    fchr[1:] = 1 + torch.cumsum(tot, 0) - torch.tensor([1, 1, 1, 1],
+                                                        device=device)
+    fchr[4] = nrows
+    nmarks = int(marks.sum())
+    sa = torch.randint(0, nrows, (-(-nmarks // 128), 128), generator=gen,
+                       device=device, dtype=torch.int64)
+    idx = GpuIndex(blocks=blocks, fchr=fchr, sa_sample=sa,
+                   ftab=torch.zeros((1, 128), dtype=torch.int64,
+                                    device=device),
+                   ref_words=torch.zeros(128, dtype=torch.int64,
+                                         device=device),
+                   zoff=zoff, nrows=nrows, ftab_k=ftab_k + 1, srate=srate)
+    nq = 4 ** ftab_k
+    tops, bots = [], []
+    for lo in range(0, nq, chunk):
+        q = torch.arange(lo, min(lo + chunk, nq), device=device)
+        kmers = ((q[:, None] >> (2 * torch.arange(
+            ftab_k - 1, -1, -1, device=device))) & 3).to(torch.int8)
+        t, b = seed_search.search_seeds_plain(
+            idx, kmers, torch.ones(len(q), dtype=torch.bool, device=device))
+        tops.append(t)
+        bots.append(b)
+    idx.ftab = torch.cat([torch.cat(tops).reshape(-1, 64),
+                          torch.cat(bots).reshape(-1, 64)], dim=1)
+    idx.ftab_k = ftab_k
+    return idx
+
+
+def _i32(x):
+    """uint32 values (an int or an int64 tensor) as their int32 bits."""
+    if isinstance(x, torch.Tensor):
+        return (x & 0xFFFFFFFF).to(torch.int32)
+    return torch.tensor(x & 0xFFFFFFFF, dtype=torch.int64).to(torch.int32)
+
+
+def lf_seeds(idx, rng, S, L):
+    """int64 seeds [S, L] read off LF walks of L steps from random rows:
+    each is a string the index holds, so its search stays alive."""
+    from omp_bowtie2_prime_tpu_torch.ops import rank
+
+    dev = idx.blocks.device
+    row = torch.from_numpy(rng.integers(0, idx.nrows, S)).to(dev)
+    row = torch.where(row == idx.zoff, row + 1, row) % idx.nrows
+    seeds = torch.empty((S, L), dtype=torch.int64, device=dev)
+    for i in range(L):
+        blk, k = rank._gather_block(idx, row)
+        c = rank._bwt_char_from_block(blk, k)
+        seeds[:, L - 1 - i] = c
+        row = rank._fchr_of(idx, c) + rank._occ_from_block(blk, k, c, row,
+                                                           idx.zoff)
+        row = torch.where(row == idx.zoff, row + 1, row) % idx.nrows
+    return seeds
+
+
+def _sectors(nbits, k):
+    """32-byte sectors of the first k values of nbits bits, packed."""
+    return -(-k * nbits // 256)
+
+
 def search_bytes(idx, seeds, valid, sub_ftab):
-    """Bytes K3a must move on these inputs: the seeds, valid and the two
-    outputs once, the two ftab words of an alive lane (two 32-byte
-    sectors), and for each range end an LF step updates, the sectors of
-    the BWT words below the end's in-block offset k (ceil(k / 64)) and of
-    its occ count (one), as the kernel reads them; the lanes' ranges come
-    from a run of the plain version."""
+    """Bytes the search must move on these inputs, whatever the record's
+    layout: the seeds, valid and the two outputs once, the ftab's two
+    sectors for an alive lane, and for each range end an LF step updates
+    the sectors of the 2-bit bases below the end's in-block offset k
+    (ceil(k / 128)) and of its 32-bit occ count (one). The lanes' ranges
+    come from a run of the plain version."""
     S, L = seeds.shape
     sectors = [0]
 
     def on_step(upd, top, bot):
         for r in (top, bot):
-            sectors[0] += int((((r[upd] & 1023) + 63) // 64 + 1).sum())
+            sectors[0] += int((_sectors(2, r[upd] & 1023) + 1).sum())
 
     seed_search.search_seeds_plain(idx, seeds, valid, sub_ftab,
                                    on_step=on_step)
@@ -843,11 +1021,13 @@ def search_bytes(idx, seeds, valid, sub_ftab):
 
 
 def walk_bytes(idx, rows, valid):
-    """Bytes K3b must move on these inputs: rows, valid and the offsets
-    once, and per step of a live lane the sectors the kernel reads: the
-    row's mark word; on a hit the bitmap's words up to it, the rank
-    checkpoint and the SA sample's word; on a miss the BWT words up to the
-    row's own and its occ count. The steps come from the plain walk."""
+    """Bytes the walk must move on these inputs, whatever the record's
+    layout: rows, valid and the offsets once, and per step of a live
+    lane at in-block offset k: on a miss the sector of its mark bit, the
+    sectors of the 2-bit bases up to its own (ceil((k + 1) / 128)) and of
+    its 32-bit occ count; on a hit the sectors of the mark bits up to its
+    own (ceil((k + 1) / 256)), of the 32-bit marked rank and of the SA
+    sample's word. The steps come from the plain walk."""
     from omp_bowtie2_prime_tpu_torch.ops import rank as fm_rank
 
     row, live, sectors = rows.clone(), valid.clone(), 0
@@ -855,17 +1035,35 @@ def walk_bytes(idx, rows, valid):
         marked, _rnk, nxt = fm_rank.walk_step(idx, row)
         k = row & 1023
         hit, miss = marked & live, ~marked & live
-        sectors += int(((68 + k[hit] // 32) // 4 - 16 + 2).sum())
-        sectors += int((k[miss] // 64 + 3).sum())
+        sectors += int((_sectors(1, k[hit] + 1) + 2).sum())
+        sectors += int((_sectors(2, k[miss] + 1) + 2).sum())
         live = miss
         row = torch.where(miss, nxt, row)
     return 17 * rows.shape[0] + 32 * sectors
 
 
-def fm_hold(tag, label, fn, plain, nbytes):
+def time_cold_ms(fn, n, flush):
+    """(median, min, max) ms of n launches of ``fn``, each after
+    overwriting ``flush`` (past the L2: every record read comes from
+    device memory), the events around the launch alone."""
+    fn()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(n)]
+    for i, (a, b) in enumerate(ev):
+        flush.fill_(i)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    ts = [a.elapsed_time(b) for a, b in ev]
+    return float(np.median(ts)), min(ts), max(ts)
+
+
+def fm_hold(tag, label, fn, plain, nbytes, flush):
     """One FM kernel on one input: ``fn()`` against ``plain()`` bit for
-    bit (the plain version's one call timed), ``fn`` timed over 20
-    launches, and its bound from ``nbytes``. Returns the case's row."""
+    bit (the plain version's one call timed), ``fn`` timed L2-warm (20
+    launches in a row) and L2-cold (the median of 20, ``time_cold_ms``),
+    and its bound from ``nbytes``. Returns the case's row."""
     got = fn()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -883,52 +1081,86 @@ def fm_hold(tag, label, fn, plain, nbytes):
         raise AssertionError(f"{tag} kernel != plain at {label}: max err "
                              f"{err}, differing lanes by output {bad}")
     ms = time_ms(fn, 20)
+    cold, lo, hi = time_cold_ms(fn, 20, flush)
     bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    log(f"[16] {tag} {label}: {got[0].shape[0]} lanes, kernel {ms:.3f} ms, "
+    log(f"[16] {tag} {label}: {got[0].shape[0]} lanes, kernel {ms:.4f} ms "
+        f"warm, {cold:.4f} ms L2-cold (median of 20, {lo:.4f}-{hi:.4f}), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes: "
-        f"{nbytes}), max_abs_err {err} (tolerance: exact)")
-    return dict(label=label, lanes=got[0].shape[0], ms=ms,
+        f"{nbytes}, layout-free), share of the bound {bound_ms / ms:.3f} "
+        f"warm, {bound_ms / cold:.3f} cold, max_abs_err {err} (tolerance: "
+        "exact)")
+    return dict(label=label, lanes=got[0].shape[0], ms=ms, ms_cold=cold,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / ms, bound_share_cold=bound_ms / cold,
                 max_abs_err=err)
 
 
 def check_fm(idx_paths, rng):
     """Phase 16: K3a and K3b against their plain versions bit for bit on
     the cases of FM_CASES (the walk on the rows the round samples from
-    the kernel's ranges, range_cap 16, every slot of the round's), timed,
-    with their bounds; on the first case the whole search_resolve_seeds
-    with torch's sync debug mode set to raise (first shown to raise on an
-    int() of a device value): no host sync inside it, and its results
-    equal the plain composition's. Returns the entries of the kernels
-    line (launches filled in by the paths)."""
-    from omp_bowtie2_prime_tpu_torch.index.format import FMIndex, GpuIndex
+    the kernel's ranges, range_cap 16, every slot of the round's; on the
+    offset cases on rows at those offsets), timed L2-warm and L2-cold,
+    with their layout-free bounds; the device records' bytes of phase 5's
+    index and of phase 12 (d)'s A^n index; on the first case the whole
+    search_resolve_seeds with torch's sync debug mode set to raise (first
+    shown to raise on an int() of a device value): no host sync inside
+    it, and its results equal the plain composition's. Returns the
+    entries of the kernels line (launches filled in by the paths)."""
+    from omp_bowtie2_prime_tpu_torch.index.format import (
+        DEV_BLOCK_U32, DEV_OCC_BLOCK, FMIndex, GpuIndex)
     from omp_bowtie2_prime_tpu_torch.utils import dna
 
     t_phase = time.perf_counter()
     rows = {"K3a": [], "K3b": []}
     hosts = {}
-    for n, (label, which, srate, L, short, S) in enumerate(FM_CASES):
-        if which not in hosts:
-            fm = FMIndex.load(idx_paths[which])
-            hosts[which] = (fm, dna.unpack_2bit(fm.ref_words, fm.n))
-        fm, text = hosts[which]
-        idx = GpuIndex.from_host(fm.subsample_sa(srate), "cuda")
-        seeds = fm_seeds(rng, text, S, L, short)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    for n, (label, which, srate, L, short, S, offsets) in enumerate(
+            FM_CASES):
+        if which == "random":
+            t0 = time.perf_counter()
+            idx = random_bwt_index(RANDOM_BWT_ROWS, rng, "cuda", srate)
+            log(f"[16] random BWT index: {idx.nrows} rows, "
+                f"{idx.blocks.numel() * idx.blocks.element_size()} bytes of "
+                f"records, built on the card in "
+                f"{time.perf_counter() - t0:.1f} s")
+        else:
+            if which not in hosts:
+                fm = FMIndex.load(idx_paths[which])
+                hosts[which] = (fm, dna.unpack_2bit(fm.ref_words, fm.n))
+            fm, text = hosts[which]
+            idx = GpuIndex.from_host(fm.subsample_sa(srate), "cuda")
+        if n == 0:
+            rec = idx.blocks.numel() * idx.blocks.element_size()
+            poly = -(-(POLY_A_N + 1) // DEV_OCC_BLOCK)
+            per = DEV_BLOCK_U32 * idx.blocks.element_size()
+            log(f"[16] device records ({idx.blocks.dtype}, {per} B a "
+                f"record): phase 5's index {idx.blocks.shape[0]} records, "
+                f"{rec} bytes (the int64 layout's: {2 * rec}); phase 12 "
+                f"(d)'s A^n index {poly} records, {poly * per} bytes (the "
+                f"int64 layout's: {2 * poly * per})")
+        seeds = (lf_seeds(idx, rng, S, L) if which == "random" else
+                 fm_seeds(rng, text, S, L, short) if offsets is None else
+                 fm_offset_seeds(rng, text, fm, S, L, offsets))
         valid = torch.from_numpy(rng.random(S) < 0.95).cuda()
         lseed = torch.from_numpy(rng.integers(0, 1 << 32, S)).cuda()
         sub = short > 0
         rows["K3a"].append(fm_hold(
             "K3a", label, lambda: fm_cuda.search_seeds(idx, seeds, valid, sub),
             lambda: seed_search.search_seeds_plain(idx, seeds, valid, sub),
-            search_bytes(idx, seeds, valid, sub)))
+            search_bytes(idx, seeds, valid, sub), flush))
         top, bot = fm_cuda.search_seeds(idx, seeds, valid, sub)
-        starts, r, live, nlive = seed_search.sample_rows(
-            top, bot, 16, 1.0, 0, lseed)
+        if offsets is None:
+            starts, r, live, nlive = seed_search.sample_rows(
+                top, bot, 16, 1.0, 0, lseed)
+        else:
+            r, nlive = fm_offset_rows(rng, fm.nrows, S, offsets), None
+            live = torch.from_numpy(rng.random(S) < 0.95).cuda()
         rows["K3b"].append(fm_hold(
             "K3b", label,
             lambda: fm_cuda.resolve_rows(idx, r, live),
             lambda: walk.resolve_rows_plain(idx, r, live, nlive),
-            walk_bytes(idx, r, live)))
+            walk_bytes(idx, r, live), flush))
         if n == 0:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -955,13 +1187,18 @@ def check_fm(idx_paths, rng):
                 "an int() of a device value just before); its four outputs "
                 "equal the plain composition's")
         del idx
+        torch.cuda.empty_cache()
+    del flush
     log(f"[16] in {time.perf_counter() - t_phase:.1f} s")
     return {tag: dict(
         name=KERNELS[tag]["name"], route=KERNELS[tag]["route"],
         source=KERNELS[tag]["source"], replaces=KERNELS[tag]["replaces"],
         launches=0, max_abs_err=max(x["max_abs_err"] for x in rows[tag]),
-        ms=rows[tag][0]["ms"], plain_ms=rows[tag][0]["plain_ms"],
+        ms=rows[tag][0]["ms"], ms_cold=rows[tag][0]["ms_cold"],
+        plain_ms=rows[tag][0]["plain_ms"],
         bound_ms=rows[tag][0]["bound_ms"], bound_by="bytes",
+        bound_share=rows[tag][0]["bound_share"],
+        bound_share_cold=rows[tag][0]["bound_share_cold"],
         # no single PyTorch call computes an FM backward search or an SA
         # walk; the yardstick is a dependent chain of row gathers
         # (scripts/torch_roofline_searchresolve.py)
@@ -1816,8 +2053,9 @@ def run_int64_rows(rng):
         raise AssertionError("the A^n index is not past 2^31 rows")
     log(f"[12] (d) A^n, n = {n}: {idx.nrows} rows (past {INT32_ROW_LIMIT}); "
         f"host arrays {host_gb:.2f} GB built in {t1 - t0:.1f} s; on the card "
-        f"{dev_gb:.2f} GB ({100 * dev_gb * 1e9 / torch.cuda.get_device_properties(0).total_memory:.1f}% of it), "
-        f"from_host {t2 - t1:.1f} s")
+        f"{dev_gb:.2f} GB ({100 * dev_gb * 1e9 / torch.cuda.get_device_properties(0).total_memory:.1f}% of it; "
+        f"the block records {idx.blocks.numel() * idx.blocks.element_size()}"
+        f" bytes, {idx.blocks.dtype}), from_host {t2 - t1:.1f} s")
     zero_fm_counts()
     wins, lanes = poly_a_checks(idx, n, rng, 1 << 20)
     held = (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK)
@@ -2112,7 +2350,8 @@ def rank13_align(run, world, rank, wd, device):
         reduce_s=timers.acc.get("tpReduce", 0.0),
         reduces_on_own_stream=set(rank_ops.REDUCE_STREAMS) <= streams,
         dev_bytes=dev_bytes,
-        idx_bytes=sum(getattr(al.idx, f).numel() * 8 for f in fields),
+        idx_bytes=sum(t.numel() * t.element_size() for t in
+                      (getattr(al.idx, f) for f in fields)),
         hbm=tp_hbm_per_device(fm, world) if run["mesh"] == "tp" else None,
         own_reads=sum(a.metrics.reads for a in als),
         gather_s=sum(a.timers.acc.get("dataGather", 0.0) for a in als),

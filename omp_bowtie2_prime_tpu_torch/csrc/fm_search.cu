@@ -8,33 +8,47 @@
 // (ops/seed_search.search_seeds_plain, ops/walk.resolve_rows_plain): every
 // output is an integer.
 //
-// The index is the port's device layout (index/format.py): 1024-row block
-// records of 128 int64 words (uint32 values: 64 words of 2-bit BWT, 4 occ
-// counts at the block start, 32 words of the SA-mark bitmap, the marked
-// rank at the block start), the ftab as rows of 64 tops then 64 bottoms,
-// the SA sample 128 a row. The kernels use the low 32 bits of a word.
-// Gathers follow the plain version's (ops/rank.take: a negative index
-// wraps once, then the index clamps), so a garbage lane reads what the
-// plain version reads and never faults. Rows are int64 (an index past
-// 2^31 rows) and record offsets 64-bit.
+// The index is the port's device layout (index/format.py), the JAX
+// package's DEV_BLOCK_U32 record: 1024-row block records of 128 uint32
+// words, 512 B (64 words of 2-bit BWT, 4 occ counts at the block start,
+// 32 words of the SA-mark bitmap, the marked rank at the block start),
+// held in int32 tensors; the ftab as int64 rows of 64 tops then 64
+// bottoms, the SA sample 128 int64 a row. The counts are uint32 and
+// widen with zeros (an index past 2^31 rows sets their bit 31). Gathers
+// follow the plain version's (ops/rank.take: a negative index wraps
+// once, then the index clamps), so a garbage lane reads what the plain
+// version reads and never faults. Rows are int64 (an index past 2^31
+// rows) and record offsets 64-bit.
 //
-// What bounds them on this card is the dependent chain of record gathers:
-// an LF step cannot start before the last one's sums are known, and each
-// step reads at most a few hundred bytes of one record per range end. The
-// plain version runs some fifty small launches a step and waits between
-// them; here every step of a lane runs inside one launch, a warp a lane,
-// so the card keeps thousands of chains in flight and the cost of a step
-// is one round trip to memory. A search step gives each range end a
-// half-warp: its 16 threads read the record's BWT words below the row's
-// in-block offset (16 consecutive int64 words, four 32-byte sectors a
-// load) and skip the rest, count the pairs equal to the step's base with
-// __popc and sum over the half-warp with shuffles; the next base is read
-// from the seed (a broadcast load, L1-resident). A walk step reads the
-// one mark word of the row first; on a hit the warp counts the mark rank
-// (the bitmap's words below the row) and reads the SA sample, on a miss it
-// reads the BWT words up to the row's own and takes the LF step. A lane
-// stops at its hit, as the plain version's lockstep gives the same
-// numbers; a dead lane writes its result at once.
+// What bounds them is the dependent chain of record reads (an LF step
+// cannot start before the last one's sums are known) and the
+// instructions a step costs. Each step therefore issues all its reads
+// in one round, only those of the 16-byte chunks below the row's
+// in-block offset k, and several lanes share a warp, so that a warp
+// instruction serves several chains: with a warp a lane both kernels ran
+// at the rate their instructions issue, not their reads (PERF.md, the
+// sweep of lanes a warp). Every step of a lane runs inside one launch;
+// the plain version runs some fifty small launches a step and waits
+// between them.
+//
+// Search: kSearchG threads a range end, two range ends a seed lane, four
+// seed lanes a warp. A thread copies its four 16-byte chunks of BWT
+// words (those holding a base below k; the 64 words are 16 chunks) into
+// shared memory with cp.async, and the occ count of the step's base with
+// them: the base is known a step ahead. One wait, then it counts the
+// pairs equal to the base with __popc (two words' flags a count) and the
+// range end's threads sum with shuffles. cp.async keeps the copies in
+// flight together: register loads were scheduled against their uses, a
+// round trip or more each.
+//
+// Walk: kWalkR lanes a row, four rows a warp. A step's reads go out
+// together, 16 bytes each and only the words up to the row's own: a
+// lane's two chunks of BWT words and one of bitmap words, the occ counts
+// and the marked rank. Hit or miss is decided in registers: on a miss
+// the row's lanes count its base below it and take the LF step; on a hit
+// they sum the marks below it, and the row's SA sample word is read once
+// after the warp's last step. A row stops at its hit, as the plain
+// version's lockstep gives the same numbers; a dead lane issues no read.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -42,14 +56,21 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kEven = 0x55555555u;  // the pair-flag bit of each base
-constexpr int kRecWords = 128;           // int64 words a block record
-constexpr int kOcc = 64;                 // occ counts at the block start
-constexpr int kMark = 68;                // SA-mark bitmap (32 words)
-constexpr int kMarkCp = 100;             // marked rank at the block start
+constexpr int kRecWords = 128;           // uint32 words a block record
+constexpr int kTabWords = 128;  // int64 words a row of the ftab, SA sample
+// a record's 16-byte chunks: 0..15 the BWT words, then
+constexpr int kOcc4 = 16;     // words 64..67: occ counts at the block start
+constexpr int kMark4 = 17;    // words 68..99: the SA-mark bitmap
+constexpr int kMarkCp = 100;  // word 100: marked rank at the block start
 constexpr int kWarpsPerBlock = 8;
+// threads a range end of a search step (16 / kSearchG chunks a thread)
+// and lanes a row of the walk: the fastest of 1, 2, 4, 8, 16 and of 4, 8,
+// 16, 32 on an index whose records pass the L2 (PERF.md)
+constexpr int kSearchG = 4;
+constexpr int kWalkR = 8;
 
 struct Fm {
-  const int64_t* blocks;
+  const uint32_t* blocks;  // 16-byte aligned
   long long nblocks;
   const int64_t* fchr;  // [5]
   long long zoff;
@@ -62,26 +83,91 @@ __device__ __forceinline__ long long take_row(long long i, long long n) {
 }
 
 // The record holding row (rows // 1024 in floor division: an arithmetic
-// shift), and the row's offset in it.
-__device__ __forceinline__ const int64_t* record(const Fm& fm, long long row,
-                                                 int* k) {
+// shift), as 32 chunks of 16 bytes, and the row's offset in it.
+__device__ __forceinline__ const uint4* record(const Fm& fm, long long row,
+                                               int* k) {
   *k = (int)(row & 1023);
-  return fm.blocks + (size_t)take_row(row >> 10, fm.nblocks) * kRecWords;
+  return reinterpret_cast<const uint4*>(
+      fm.blocks + (size_t)take_row(row >> 10, fm.nblocks) * kRecWords);
 }
 
-// Even bits of the first nb (0..16) bases of a word; 16 is a select, as
-// a 32-bit shift by 32 is undefined.
-__device__ __forceinline__ uint32_t pair_mask(int nb) {
-  return nb >= 16 ? kEven : (((1u << (2 * nb)) - 1u) & kEven);
+// A read-only 16-byte load if p, else zeros: a predicated load with no
+// branch around it, so a step's loads issue together.
+__device__ __forceinline__ uint4 ldg_if(bool p, const uint4* a) {
+  uint4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\t"
+      "mov.b32 %2, 0;\n\tmov.b32 %3, 0;\n\t"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=&r"(v.x), "=&r"(v.y), "=&r"(v.z), "=&r"(v.w)
+      : "l"(a), "r"((int)p));
+  return v;
 }
 
-// Pairs equal to c among word j's bases below in-block offset k.
-__device__ __forceinline__ int count_word(uint32_t w, uint32_t cmask, int j,
-                                          int k) {
-  int nb = k - 16 * j;
-  nb = nb < 0 ? 0 : (nb > 16 ? 16 : nb);
-  const uint32_t x = w ^ cmask;
-  return __popc(~(x | (x >> 1)) & pair_mask(nb));
+
+// The same for one 4-byte word.
+__device__ __forceinline__ uint32_t ldg_if(bool p, const uint32_t* a) {
+  uint32_t v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.b32 %0, 0;\n\t"
+      "@q ld.global.nc.u32 %0, [%1];\n\t}"
+      : "=&r"(v)
+      : "l"(a), "r"((int)p));
+  return v;
+}
+
+// Copy N (4 or 16) bytes to shared memory, or zeros if not p (nothing is
+// read), asynchronously: the copies of a step complete at one wait.
+template <int N, typename T>
+__device__ __forceinline__ void copy_if(bool p, T* dst, const T* a) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(a), "n"(N),
+               "r"(p ? N : 0));
+}
+
+__device__ __forceinline__ uint32_t part(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// Even bits of a word's first nb bases, nb = (32 - sh) / 2: sh <= 0
+// keeps all 16, sh >= 32 none (a clamped funnel shift: a plain 32-bit
+// shift by 32 is undefined).
+__device__ __forceinline__ uint32_t pair_mask(int sh) {
+  return __funnelshift_rc(kEven, 0u, (unsigned)max(sh, 0));
+}
+
+// Bits [0, n) of a word for n = max(nb, 0), clamped at 32.
+__device__ __forceinline__ uint32_t low_mask(int nb) {
+  return __funnelshift_lc(~0u, 0u, (unsigned)max(nb, 0));
+}
+
+// Pair flags (on the even bits) of word w's bases equal to the code whose
+// pattern is cm, among the bases the mask keeps.
+__device__ __forceinline__ uint32_t eq_pairs(uint32_t w, uint32_t cm,
+                                             uint32_t mask) {
+  const uint32_t x = w ^ cm;
+  return ~(x | (x >> 1)) & mask;
+}
+
+// Pairs equal to the code of pattern cm among words 4u..4u+3 below
+// in-block offset k; two words' flags share a popcount (the second's on
+// the odd bits).
+__device__ __forceinline__ int count4(const uint4& v, uint32_t cm, int u,
+                                      int k) {
+  const int sh = 32 - 2 * k + 128 * u;  // pair_mask's for word 4u
+  return __popc(eq_pairs(v.x, cm, pair_mask(sh)) +
+                2u * eq_pairs(v.y, cm, pair_mask(sh + 32))) +
+         __popc(eq_pairs(v.z, cm, pair_mask(sh + 64)) +
+                2u * eq_pairs(v.w, cm, pair_mask(sh + 96)));
+}
+
+// Marks among bitmap words 4m..4m+3 below k.
+__device__ __forceinline__ int marks4(const uint4& v, int m, int k) {
+  const int nb = k - 128 * m;  // bits below k from word 4m on
+  return __popc(v.x & low_mask(nb)) + __popc(v.y & low_mask(nb - 32)) +
+         __popc(v.z & low_mask(nb - 64)) + __popc(v.w & low_mask(nb - 96));
 }
 
 // The low 32 bits of 0x55555555 * c, as the plain version's (_EVEN * c)
@@ -90,168 +176,234 @@ __device__ __forceinline__ uint32_t char_mask(long long c) {
   return (uint32_t)((unsigned long long)kEven * (unsigned long long)c);
 }
 
-// occ(c, row) with the zoff rule, for the 16 threads of a half-warp (t =
-// 0..15 within it); every thread of the half returns the sum.
-__device__ __forceinline__ long long occ_half(const Fm& fm, long long row,
-                                              long long c, int t) {
-  int k;
-  const int64_t* rec = record(fm, row, &k);
-  const uint32_t cmask = char_mask(c);
-  const int nw = (k + 15) >> 4;  // words holding a base below k
-  int cnt = 0;
-  for (int j = t; j < nw; j += 16)
-    cnt += count_word((uint32_t)rec[j], cmask, j, k);
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-  const long long cp = (c >= 0 && c < 4) ? rec[kOcc + c] : 0;
-  return cp + cnt - ((c == 0 && row > fm.zoff) ? 1 : 0);
-}
-
+// fchr[c] for c in [0, 4), else 0.
 __device__ __forceinline__ long long fchr_of(const Fm& fm, long long c) {
   return (c >= 0 && c < 4) ? fm.fchr[c] : 0;
 }
 
-// One warp a seed lane. seeds [B, L] (4 = N, negative = padding), valid
-// [B] -> top, bot [B].
-template <typename S>
+// Sum over the aligned groups of W lanes (every lane gets its group's).
+template <int W, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// G threads a range end, 2G a seed lane, 16 / G seed lanes a warp. seeds
+// [B, L] (4 = N, negative = padding), valid [B] -> top, bot [B]. Every
+// lane of a warp runs the same steps (the step count is the launch's); a
+// seed lane whose range empties, or that has nothing to do at a step,
+// reads nothing there.
+template <typename S, int G>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fm_search_kernel(const S* __restrict__ seeds,
                  const uint8_t* __restrict__ valid, int B, int L, Fm fm,
                  const int64_t* __restrict__ ftab,
                  long long nftab, long long nrows, int ftab_k, int sub_ftab,
                  int64_t* __restrict__ top_out, int64_t* __restrict__ bot_out) {
+  constexpr int T = 2 * G, Q = 16 / G;
+  // a thread's chunks of a step and its occ count, in shared memory
+  __shared__ uint4 stage[Q][32 * kWarpsPerBlock];
+  __shared__ uint32_t stage_cp[32 * kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
+  const int t = lane & (G - 1), h = (lane / G) & 1, g = lane & ~(T - 1);
   const long long b =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // a whole warp
-  const S* s = seeds + (size_t)b * L;
-  bool any_n = false;
-  for (int j = lane; j < L; j += 32) any_n |= ((long long)s[j] == 4);
-  any_n = __any_sync(kFull, any_n);
-  if (!valid[b] || any_n) {
-    if (lane == 0) top_out[b] = bot_out[b] = 0;
-    return;
-  }
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
+          (32 / T) + lane / T;
+  const bool in = b < B;
+  if (!__any_sync(kFull, in)) return;  // a whole warp
+  const S* s = seeds + (size_t)(in ? b : 0) * L;
+  bool n4 = false;
+  if (in)
+    for (int j = lane & (T - 1); j < L; j += T) n4 |= ((long long)s[j] == 4);
+  const unsigned gm = T == 32 ? kFull : ((1u << (T & 31)) - 1u) << g;
+  const unsigned ns = __ballot_sync(kFull, n4);  // every lane: not in a &&
+  const bool ok = in && valid[b] && !(ns & gm);
   const int k = ftab_k;
-  long long top, bot;
+  long long top = 0, bot = 0;
   int nsteps, ftab_hi;
   bool shrt;
   if (L >= k) {
     long long q = 0;  // pack_kmer: codes clamped to [0, 3], first high
-    for (int j = L - k; j < L; ++j) {
-      long long v = s[j];
-      q = q * 4 + (v < 0 ? 0 : (v > 3 ? 3 : v));
+    if (ok)
+      for (int j = L - k; j < L; ++j) {
+        const long long v = s[j];
+        q = q * 4 + (v < 0 ? 0 : (v > 3 ? 3 : v));
+      }
+    const int64_t* row = ftab + (size_t)take_row(q >> 6, nftab) * kTabWords;
+    if (ok) {
+      top = row[q & 63];
+      bot = row[64 + (q & 63)];
     }
-    const int64_t* row = ftab + (size_t)take_row(q >> 6, nftab) * kRecWords;
-    top = row[q & 63];
-    bot = row[64 + (q & 63)];
+    shrt = false;
+    nsteps = L - k;
     if (sub_ftab) {  // left-aligned sub-ftab lanes are right-padded
-      shrt = (long long)s[L - 1] < 0;
+      shrt = ok && (long long)s[L - 1] < 0;
       if (shrt) {
         top = 0;
         bot = nrows;
       }
       const int lo = (k < L ? k : L) - 1;
       nsteps = L - k > lo ? L - k : lo;
-    } else {
-      shrt = false;
-      nsteps = L - k;
     }
     ftab_hi = L - k;
   } else {
     shrt = true;
-    top = 0;
-    bot = nrows;
+    bot = ok ? nrows : 0;
     nsteps = L;
     ftab_hi = L;
   }
-  const int half = lane >> 4, t = lane & 15;
+  bool run = ok;
+  // each step's base is read a step ahead, so its load is in flight
+  // while the step before waits for its record
+  long long c = (run && nsteps > 0) ? (long long)s[nsteps - 1] : 0;
   for (int i = 0; i < nsteps; ++i) {
     const int pos = nsteps - 1 - i;  // right to left
-    const long long c = s[pos];
-    if (bot <= top) {  // not live: empty from here on
+    const long long cn = (run && pos > 0) ? (long long)s[pos - 1] : 0;
+    if (run && bot <= top) {  // not live: empty from here on
       bot = top;
-      break;
+      run = false;
     }
-    if (c < 0 || !(pos < ftab_hi || shrt)) continue;
-    const long long v = occ_half(fm, half ? bot : top, c, t);
-    const long long f = fchr_of(fm, c);
-    top = f + __shfl_sync(kFull, v, 0);
-    bot = f + __shfl_sync(kFull, v, 16);
+    if (!__any_sync(kFull, run)) break;
+    const bool upd = run && c >= 0 && (pos < ftab_hi || shrt);
+    const long long f = upd ? fchr_of(fm, c) : 0;
+    // occ(c, row) of this thread's range end: one round of copies, the
+    // thread's chunks holding a base below k and the occ count of c
+    const long long row = h ? bot : top;
+    int kk;
+    const uint4* rec = record(fm, row, &kk);
+    const int nw = (kk + 15) >> 4;  // words holding a base below k
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int u = t + G * j;
+      copy_if<16>(upd && 4 * u < nw, &stage[j][threadIdx.x], rec + u);
+    }
+    copy_if<4>(upd && c < 4, &stage_cp[threadIdx.x],
+               reinterpret_cast<const uint32_t*>(rec + kOcc4) + (c & 3));
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    const uint32_t cm = char_mask(c);
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+      cnt += count4(stage[j][threadIdx.x], cm, t + G * j, kk);
+    cnt = group_sum<G>(cnt);
+    const long long o = (long long)stage_cp[threadIdx.x] + cnt -
+                        ((c == 0 && row > fm.zoff) ? 1 : 0);
+    const long long other = __shfl_xor_sync(kFull, o, G);
+    if (upd) {
+      top = f + (h ? other : o);
+      bot = f + (h ? o : other);
+    }
+    c = cn;
   }
-  if (lane == 0) {
+  if (in && (lane & (T - 1)) == 0) {
     top_out[b] = top;
     bot_out[b] = bot > top ? bot : top;
   }
 }
 
-// One warp a row. rows, valid [R] -> joined-text offsets [R]; -1 where
-// the lane is not valid or its walk finds no marked row within srate
-// steps.
+// R lanes a row, 32 / R rows a warp (R <= 16). rows, valid [nr] ->
+// joined-text offsets [nr]; -1 where the lane is not valid or its walk
+// finds no marked row within srate steps. A step is one round of loads;
+// each row's SA sample word is read once, after the warp's last step.
+template <int R>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fm_walk_kernel(const int64_t* __restrict__ rows,
-               const uint8_t* __restrict__ valid, int R, Fm fm,
+               const uint8_t* __restrict__ valid, int nr, Fm fm,
                const int64_t* __restrict__ sa, long long nsa, int srate,
                int64_t* __restrict__ out) {
+  constexpr int QB = 16 / R;             // chunks of BWT words a lane
+  constexpr int QM = R < 8 ? 8 / R : 1;  // chunks of bitmap words a lane
   const int lane = threadIdx.x & 31;
+  const int i = lane & (R - 1), g = lane & ~(R - 1);
   const long long r =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= R) return;
-  if (!valid[r]) {
-    if (lane == 0) out[r] = -1;
-    return;
-  }
-  long long row = rows[r];
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
+          (32 / R) + lane / R;
+  const bool in = r < nr;
+  if (!__any_sync(kFull, in)) return;  // a whole warp
+  bool run = in && valid[r];
+  long long row = run ? rows[r] : 0;
+  // fchr[lane & 3] on every lane: lane (lane & ~3) + c holds fchr[c]
+  const long long fl = fm.fchr[lane & 3];
+  long long rnk = 0;
+  int hit_step = -1;
   for (int step = 0; step < srate; ++step) {
+    if (!__any_sync(kFull, run)) break;
     int k;
-    const int64_t* rec = record(fm, row, &k);
-    const int mw = k >> 5;
-    if (((uint32_t)rec[kMark + mw] >> (k & 31)) & 1u) {
-      // marked: rank = checkpoint + marks below k, then the SA sample
-      uint32_t m = 0;
-      if (lane <= mw) {
-        const int nb = k - 32 * lane;  // 0..31 on the row's own word
-        m = (uint32_t)rec[kMark + lane] &
-            (nb >= 32 ? kFull : ((1u << nb) - 1u));
-      }
-      int cnt = __popc(m);
+    const uint4* rec = record(fm, row, &k);
+    const int wi = k >> 4, mw = k >> 5;  // the row's BWT and mark words
+    // one round: every chunk of words up to the row's own, the occ
+    // counts and the marked rank
+    uint4 vb[QB], vm[QM];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-      if (lane == 0) {
-        const long long rnk = rec[kMarkCp] + cnt;
-        out[r] = sa[(size_t)take_row(rnk >> 7, nsa) * kRecWords + (rnk & 127)]
-                 + step;
-      }
-      return;
+    for (int j = 0; j < QB; ++j) {
+      const int u = i + R * j;
+      vb[j] = ldg_if(run && 4 * u <= wi, rec + u);
     }
-    // LF by the row's own BWT char: words 0..k/16 (the char's included)
-    const int wi = k >> 4;
-    const uint32_t w0 = lane <= wi ? (uint32_t)rec[lane] : 0u;
-    const uint32_t w1 = lane + 32 <= wi ? (uint32_t)rec[lane + 32] : 0u;
-    const uint32_t wc = __shfl_sync(kFull, wi < 32 ? w0 : w1, wi & 31);
-    const long long c = (wc >> (2 * (k & 15))) & 3u;
-    const uint32_t cmask = char_mask(c);
-    int cnt = count_word(w0, cmask, lane, k) +
-              count_word(w1, cmask, lane + 32, k);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(kFull, cnt, o);
-    // zoff is marked, so no walk steps through the sentinel
-    row = fm.fchr[c] + rec[kOcc + c] + cnt -
-          ((c == 0 && row > fm.zoff) ? 1 : 0);
+    for (int j = 0; j < QM; ++j) {
+      const int u = i + R * j;
+      vm[j] = ldg_if(run && u < 8 && 4 * u <= mw, rec + kMark4 + u);
+    }
+    const uint4 occ = ldg_if(run, rec + kOcc4);
+    const uint32_t markcp =
+        ldg_if(run, reinterpret_cast<const uint32_t*>(rec) + kMarkCp);
+    // the row's mark word and BWT word, from the lanes that loaded them
+    const int mq = mw >> 2, wq = wi >> 2;
+    uint32_t msel = 0, wsel = 0;
+#pragma unroll
+    for (int j = 0; j < QM; ++j)
+      if (j == mq / R) msel = part(vm[j], mw & 3);
+#pragma unroll
+    for (int j = 0; j < QB; ++j)
+      if (j == wq / R) wsel = part(vb[j], wi & 3);
+    const uint32_t mword = __shfl_sync(kFull, msel, g + mq % R);
+    const uint32_t wc = __shfl_sync(kFull, wsel, g + wq % R);
+    const int c = (wc >> (2 * (k & 15))) & 3u;
+    const bool hit = run && ((mword >> (k & 31)) & 1u);
+    // the row's base among the BWT words below it, summed over its lanes
+    const uint32_t cm = char_mask(c);
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < QB; ++j) cnt += count4(vb[j], cm, i + R * j, k);
+    cnt = group_sum<R>(cnt);
+    const long long f = __shfl_sync(kFull, fl, (lane & ~3) + c);
+    if (__any_sync(kFull, hit)) {
+      // marked: rank = checkpoint + marks below k
+      int mk = 0;
+#pragma unroll
+      for (int j = 0; j < QM; ++j) mk += marks4(vm[j], i + R * j, k);
+      mk = group_sum<R>(mk);
+      if (hit) {
+        rnk = (long long)markcp + mk;
+        hit_step = step;
+        run = false;
+      }
+    }
+    // LF by the row's own base; zoff is marked, so no walk steps through
+    // the sentinel
+    if (run)
+      row = f + (long long)part(occ, c) + cnt -
+            ((c == 0 && row > fm.zoff) ? 1 : 0);
   }
-  if (lane == 0) out[r] = -1;
+  if (in && i == 0)
+    out[r] = hit_step < 0 ? -1
+             : sa[(size_t)take_row(rnk >> 7, nsa) * kTabWords + (rnk & 127)] +
+                   hit_step;
 }
 
-int grid_of(long long lanes) {
-  return (int)((lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
+int grid_of(long long lanes, int per_warp) {
+  const long long per_block = (long long)kWarpsPerBlock * per_warp;
+  return (int)((lanes + per_block - 1) / per_block);
 }
 
 }  // namespace
 
-// C entry points for ctypes. The index: blocks int64 [nblocks, 128], fchr
-// int64 [5], ftab int64 [nftab, 128], sa int64 [nsa, 128]; zoff, nrows as
-// the index's. Both launch on the stream, do not wait, and return the
-// cudaError_t of the launch (0 on success); B or R of 0 launches nothing.
+// C entry points for ctypes. The index: blocks int32 [nblocks, 128] (the
+// uint32 records, 16-byte aligned), fchr int64 [5], ftab int64 [nftab,
+// 128], sa int64 [nsa, 128]; zoff, nrows as the index's. Both launch on
+// the stream, do not wait, and return the cudaError_t of the launch (0 on
+// success); B or R of 0 launches nothing.
 //
 // Search: seeds [B, L] of int8 (seed_bytes 1) or int64 (8), valid bool
 // [B] -> top, bot int64 [B].
@@ -263,18 +415,19 @@ extern "C" int fm_search_launch(const void* seeds, int seed_bytes,
                                 long long nrows, int ftab_k, int sub_ftab,
                                 void* top, void* bot, void* stream) {
   if (B <= 0) return 0;
-  if (L < 0 || ftab_k < 1 || (seed_bytes != 1 && seed_bytes != 8))
+  if (L < 0 || ftab_k < 1 || (seed_bytes != 1 && seed_bytes != 8) ||
+      ((uintptr_t)blocks & 15))
     return (int)cudaErrorInvalidValue;
-  const Fm fm{(const int64_t*)blocks, nblocks, (const int64_t*)fchr, zoff};
-  const dim3 grid(grid_of(B)), block(32 * kWarpsPerBlock);
+  const Fm fm{(const uint32_t*)blocks, nblocks, (const int64_t*)fchr, zoff};
+  const dim3 grid(grid_of(B, 16 / kSearchG)), block(32 * kWarpsPerBlock);
   cudaStream_t st = (cudaStream_t)stream;
   if (seed_bytes == 1)
-    fm_search_kernel<int8_t><<<grid, block, 0, st>>>(
+    fm_search_kernel<int8_t, kSearchG><<<grid, block, 0, st>>>(
         (const int8_t*)seeds, (const uint8_t*)valid, B, L, fm,
         (const int64_t*)ftab, nftab, nrows, ftab_k, sub_ftab, (int64_t*)top,
         (int64_t*)bot);
   else
-    fm_search_kernel<int64_t><<<grid, block, 0, st>>>(
+    fm_search_kernel<int64_t, kSearchG><<<grid, block, 0, st>>>(
         (const int64_t*)seeds, (const uint8_t*)valid, B, L, fm,
         (const int64_t*)ftab, nftab, nrows, ftab_k, sub_ftab, (int64_t*)top,
         (int64_t*)bot);
@@ -289,9 +442,10 @@ extern "C" int fm_walk_launch(const void* rows, const void* valid, int R,
                               long long zoff, int srate, void* out,
                               void* stream) {
   if (R <= 0) return 0;
-  const Fm fm{(const int64_t*)blocks, nblocks, (const int64_t*)fchr, zoff};
-  fm_walk_kernel<<<grid_of(R), 32 * kWarpsPerBlock, 0,
-                   (cudaStream_t)stream>>>(
+  if ((uintptr_t)blocks & 15) return (int)cudaErrorInvalidValue;
+  const Fm fm{(const uint32_t*)blocks, nblocks, (const int64_t*)fchr, zoff};
+  fm_walk_kernel<kWalkR><<<grid_of(R, 32 / kWalkR), 32 * kWarpsPerBlock, 0,
+                           (cudaStream_t)stream>>>(
       (const int64_t*)rows, (const uint8_t*)valid, R, fm, (const int64_t*)sa,
       nsa, srate, (int64_t*)out);
   return (int)cudaGetLastError();

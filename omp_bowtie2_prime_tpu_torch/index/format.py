@@ -4,9 +4,14 @@ Counterpart of omp_bowtie2_prime_tpu/index/format.py. ``FMIndex`` reads
 and writes the same ``.npz`` container; ``GpuIndex.from_host`` builds the
 same arrays as the JAX package's ``DeviceIndex.from_host`` (the 1024-row
 block record, the 64-per-row ftab and the 128-per-row SA sample), so the
-two compare one to one. torch has no unsigned 32-bit arithmetic worth the
-name (no logical right shift, no popcount), so every uint32 word is held
-as a non-negative int64 on the device.
+two compare one to one. torch has no unsigned 32-bit type worth the name
+(no logical right shift, no popcount). The block records, the one large
+table every LF step reads, stay the JAX package's 512 B of uint32 words:
+an int32 tensor holding the bit pattern (a record's counts read negative
+past 2^31 rows until widened: ops/rank._gather_block masks them to 32
+bits, the FM kernels read them as uint32). The other tables (ftab, SA
+sample, fchr, text), each read once a lane or a walk, are non-negative
+int64.
 
 Rows are int64 everywhere in the port (ops/rank.py, ops/walk.py,
 ops/seed_search.py, ops/sw.py), so an index past 2^31 rows (the .bt2l
@@ -175,12 +180,13 @@ class TpShard:
 
 @dataclasses.dataclass
 class GpuIndex:
-    """Device-resident FM index: the arrays of the JAX DeviceIndex as
-    int64 tensors (uint32 bit patterns, all non-negative). With ``tp``
-    set (parallel/tp_index.shard_index), ``blocks`` and ``sa_sample`` hold
+    """Device-resident FM index: the arrays of the JAX DeviceIndex, the
+    block records as int32 (the uint32 bit patterns, 512 B a record), the
+    rest as int64 (non-negative). With ``tp`` set
+    (parallel/tp_index.shard_index), ``blocks`` and ``sa_sample`` hold
     only this rank's slice of the rows."""
 
-    blocks: torch.Tensor  # [nbd, 128] 1024-row block records
+    blocks: torch.Tensor  # [nbd, 128] int32: 1024-row block records
     fchr: torch.Tensor  # [5]
     ftab: torch.Tensor  # [ceil(4^k/64), 128] top | bot interleaved
     sa_sample: torch.Tensor  # [ceil(nmarked/128), 128]
@@ -232,8 +238,13 @@ class GpuIndex:
                     ref_words=ref_words)
 
     @staticmethod
-    def upload(a: np.ndarray, device) -> torch.Tensor:
-        """A host layout array on ``device`` as int64."""
+    def upload(field: str, a: np.ndarray, device) -> torch.Tensor:
+        """Host layout array ``field`` on ``device``: the block records
+        as int32 (a view of the uint32 words, not a cast), the others as
+        int64."""
+        if field == "blocks":
+            return torch.from_numpy(
+                np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
         return torch.from_numpy(a.astype(np.int64)).to(device)
 
     @classmethod
@@ -242,7 +253,7 @@ class GpuIndex:
         device = torch.device(device)
         arrs = cls.host_layout(fm)
         return cls(
-            **{k: cls.upload(a, device) for k, a in arrs.items()},
+            **{k: cls.upload(k, a, device) for k, a in arrs.items()},
             zoff=int(fm.zoff),
             nrows=int(fm.nrows),
             ftab_k=int(fm.ftab_k),

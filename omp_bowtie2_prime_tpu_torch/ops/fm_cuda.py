@@ -51,13 +51,17 @@ def _check(name, t, dtypes, shape, dev):
 
 
 def _check_index(idx, dev):
-    """The whole index's tables on ``dev``, as the kernels read them."""
+    """The whole index's tables on ``dev``, as the kernels read them: the
+    block records int32 (512 B, read in 16-byte loads), the rest int64."""
     if idx.tp is not None:
         raise ValueError("the FM kernels take a whole index; a row-sharded "
                          "one (idx.tp) runs the plain versions")
-    for name in ("blocks", "ftab", "sa_sample"):
+    for name, dtype in (("blocks", torch.int32), ("ftab", torch.int64),
+                        ("sa_sample", torch.int64)):
         t = getattr(idx, name)
-        _check(f"idx.{name}", t, (torch.int64,), (t.shape[0], 128), dev)
+        _check(f"idx.{name}", t, (dtype,), (t.shape[0], 128), dev)
+    if idx.blocks.data_ptr() % 16:
+        raise ValueError("idx.blocks: not 16-byte aligned")
     _check("idx.fchr", idx.fchr, (torch.int64,), (5,), dev)
 
 

@@ -6,8 +6,10 @@ replaces the JAX package's compare-selects (those exist because scalar
 gathers are slow on a TPU), and a SWAR popcount replaces
 ``lax.population_count``, which torch lacks.
 
-Words are uint32 bit patterns held as non-negative int64 (see
-index/format.py), so ``>>`` is a logical shift. Row vectors are int64.
+The block records are uint32 words held in int32 (index/format.py):
+``_gather_block``, the one gather of a record, widens the rows it takes
+to int64 and masks them to 32 bits, so every count after it runs on
+non-negative int64 and ``>>`` is a logical shift. Row vectors are int64.
 Out-of-range gather indices follow JAX's gather semantics (a negative
 index wraps once, then the index clamps), so garbage lanes behave as they
 do in the JAX package and never fault.
@@ -16,7 +18,9 @@ On a row-sharded index (``idx.tp`` set, parallel/tp_index.py) each rank
 holds 1/D of the block records and of the SA sample: the owner of a
 row gathers its record, every other rank contributes zeros, and one
 ``all_reduce`` (SUM) over the model group gives the record to all, the
-counterpart of the JAX package's ``psum``. ``REDUCES`` counts them.
+counterpart of the JAX package's ``psum``: 512 B of int32 a record, as
+JAX's uint32 (one owner a row keeps the sum exact at any width).
+``REDUCES`` counts them.
 """
 
 from __future__ import annotations
@@ -103,12 +107,13 @@ def _owner_gather(t, tp, nloc: int, i: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_block(idx, rows):
-    """ONE gather of the block record: (blk [B, 128], k [B] in-block
-    offset)."""
+    """ONE gather of the block record: (blk [B, 128] int64 in [0, 2^32),
+    k [B] in-block offset). The int32 words are widened and masked: a
+    count past 2^31 rows has bit 31 set."""
     b, k = rows // DEV_OCC_BLOCK, rows % DEV_OCC_BLOCK
-    if idx.tp is None:
-        return take(idx.blocks, b), k
-    return _owner_gather(idx.blocks, idx.tp, idx.tp.nblk_loc, b), k
+    blk = (take(idx.blocks, b) if idx.tp is None else
+           _owner_gather(idx.blocks, idx.tp, idx.tp.nblk_loc, b))
+    return blk.to(torch.int64) & M32, k
 
 
 def _fchr_of(idx, c):

@@ -68,11 +68,11 @@ def shard_index(fm_or_idx, mesh, axis: str = "model"):
         arrs = GpuIndex.host_layout(fm)
         blocks, nblk = _rows_of(arrs.pop("blocks"), r, d)
         sa, nsa = _rows_of(arrs.pop("sa_sample"), r, d)
-        up = {k: GpuIndex.upload(a, device) for k, a in arrs.items()}
+        up = {k: GpuIndex.upload(k, a, device) for k, a in arrs.items()}
         scal = dict(zoff=int(fm.zoff), nrows=int(fm.nrows),
                     ftab_k=int(fm.ftab_k), srate=int(fm.srate))
-        blocks = GpuIndex.upload(blocks, device)
-        sa = GpuIndex.upload(sa, device)
+        blocks = GpuIndex.upload("blocks", blocks, device)
+        sa = GpuIndex.upload("sa_sample", sa, device)
     else:
         idx = fm_or_idx
         if idx.tp is not None:
@@ -121,9 +121,16 @@ def tp_search_resolve_fn(idx, mesh, range_cap: int, expand: float,
     return fn
 
 
+# bytes of a 128-word row of each device array: the block records are
+# uint32 words in int32 (512 B), the other tables int64
+ROW_BYTES = dict(blocks=DEV_BLOCK_U32 * 4, sa_sample=DEV_BLOCK_U32 * 8,
+                 ftab=DEV_BLOCK_U32 * 8, ref_words=DEV_BLOCK_U32 * 8,
+                 fchr=DEV_BLOCK_U32 * 8)
+
+
 def _layout_rows(idx) -> dict:
-    """Rows of each device array (128 int64 words a row for the tables)
-    of an FMIndex's or an unsharded GpuIndex's device layout."""
+    """Rows of 128 words of each device array of an FMIndex's or an
+    unsharded GpuIndex's device layout."""
     if isinstance(idx, FMIndex):
         return dict(blocks=(idx.nblocks + 7) // 8,
                     sa_sample=-(-len(idx.sa_sample) // DEV_SA_PER_ROW),
@@ -138,15 +145,18 @@ def _layout_rows(idx) -> dict:
 
 def tp_hbm_per_device(idx, n_model: int) -> dict:
     """Device bytes a rank holds, replicated against sharded over n_model
-    ranks (the port's int64 layout: 8 bytes a uint32 word), of an
-    FMIndex or an unsharded GpuIndex: the capacity the sharding buys."""
+    ranks (``ROW_BYTES`` a row: 512 B a block record, 8 bytes a word of
+    the int64 tables), of an FMIndex or an unsharded GpuIndex: the
+    capacity the sharding buys."""
     rows = _layout_rows(idx)
-    rec = DEV_BLOCK_U32 * 8
-    big = rows["blocks"] + rows["sa_sample"]
-    rest = round((rows["ftab"] + rows["ref_words"] + rows["fchr"]) * rec)
-    per = -(-rows["blocks"] // n_model) + -(-rows["sa_sample"] // n_model)
+    rest = round(sum(rows[k] * ROW_BYTES[k]
+                     for k in ("ftab", "ref_words", "fchr")))
+    whole = (rows["blocks"] * ROW_BYTES["blocks"]
+             + rows["sa_sample"] * ROW_BYTES["sa_sample"])
+    per = (-(-rows["blocks"] // n_model) * ROW_BYTES["blocks"]
+           + -(-rows["sa_sample"] // n_model) * ROW_BYTES["sa_sample"])
     return {
-        "replicated": big * rec + rest,
-        "tp_sharded": per * rec + rest,
+        "replicated": whole + rest,
+        "tp_sharded": per + rest,
         "n_model": n_model,
     }

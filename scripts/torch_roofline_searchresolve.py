@@ -13,7 +13,7 @@ there if ``--workdir`` lacks it):
      x (ftab row + 2 block rows an LF step) + slots x (srate block rows +
      SA row)), as the JAX script counts them (512 B records, DEV_BLOCK_U32
      uint32 words) and as the port's device index holds them (the same
-     128 words as int64: 1 KB a record);
+     128 words in an int32 tensor: 512 B a record, the chain's row);
   2. the real grid round (``_grid_run``, round 0, its copy back
      included) on ``--batch`` reads of ``synth_reads``;
   3. a DEPENDENT gather chain of the same shape over the same
@@ -116,7 +116,7 @@ def main(argv=None):
         f"nsteps={shp['nsteps']} srate={shp['srate']} rmax={shp['rmax']}")
     for pre, what in (("", "512 B records (the JAX layout)"),
                       ("dev_", f"{shp['dev_blk']} B records (the port's "
-                               "int64 device index)")):
+                               "int32 device records)")):
         log(f"## bytes/batch at {what}: search "
             f"{shp[pre + 'search_bytes']/1e9:.3f} GB + walk "
             f"{shp[pre + 'walk_bytes']/1e9:.3f} GB = "

@@ -14,6 +14,7 @@ device. The file imports no JAX, so it runs where JAX is absent:
 
 Every output is an integer: the tolerance is exact equality."""
 
+import dataclasses
 import io
 import os
 import subprocess
@@ -44,6 +45,17 @@ def _problems(seed, B, L, W):
         wlens[b] = W
     rdlens[-2], wlens[-1] = 0, 0
     return [torch.from_numpy(a) for a in (reads, pens, rdlens, refs, wlens)]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its main() is guarded)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -780,15 +792,10 @@ def test_poly_a_past_2_31_rows_on_the_card(cuda):
     """The closed-form index of A^n just past 2^31 rows (chip_smoke.py
     phase 12 (d)'s form, at 65,536 query rows instead of a million):
     every FM op past 2^31 equals the closed form on the card."""
-    import importlib.util
-
     from omp_bowtie2_prime_tpu_torch.index.format import (GpuIndex,
                                                           INT32_ROW_LIMIT)
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     n = (1 << 31) + 4096
     idx = GpuIndex.from_host(chip_smoke.homopolymer_index(n, 8, 12), "cuda")
     assert idx.nrows > INT32_ROW_LIMIT
@@ -1061,3 +1068,80 @@ def test_fm_kernels_two_streams_at_once(cuda):
             assert torch.equal(g, w)
     assert sorted(fm_cuda.STREAMS.values()) == [6, 6]
     assert set(fm_cuda.STREAMS) == {st.cuda_stream for st in streams}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("srate", [8, 16, 32])
+@pytest.mark.parametrize("offsets", ["deep", "edges"])
+def test_fm_kernels_at_edge_offsets(cuda, offsets, srate):
+    """K3a on 22-mers whose first LF step reads rows deep in their records
+    (k >= 896: the last 16-byte loads) or at each of chip_smoke's
+    FM_EDGE_OFFSETS (k = 0: no BWT word; 15, 16: part of and the whole
+    first word; 127, 128: the ends of two loads; 1023: every word), and
+    K3b walking from rows at those offsets (the last bitmap words, a mark
+    word's first and last bit), against their plain versions bit for
+    bit, at srate 8, 16 and 32."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
+
+    smoke = _chip_smoke()
+    text, fm = _fm_index(200_000, 10, srate)
+    idx = GpuIndex.from_host(fm, cuda)
+    rng = np.random.default_rng(srate * 10 + len(offsets))
+    S = 20_000
+    seeds = smoke.fm_offset_seeds(rng, text, fm, S, 22, offsets)
+    valid = torch.from_numpy(rng.random(S) < 0.95).to(cuda)
+    top, bot = _fm_search_held(idx, seeds, valid, False)
+    assert int((bot > top).sum()) > S // 2
+    rows = smoke.fm_offset_rows(rng, fm.nrows, S, offsets)
+    ks = set((rows & 1023).tolist())
+    assert (min(ks) >= 896 if offsets == "deep" else
+            ks == set(smoke.FM_EDGE_OFFSETS))
+    want = walk.resolve_rows_plain(idx, rows, valid)
+    got = fm_cuda.resolve_rows(idx, rows, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got >= 0).sum()) > S // 2
+
+
+def _fm_bit31(fm):
+    """``fm`` with 2^31 added to every occ count of A and every marked rank
+    and taken from fchr[A]: checkpoint words with bit 31 set (as past 2^31
+    rows) under the LF steps of ``fm`` (a marked rank past the SA sample
+    clamps, on both sides)."""
+    return dataclasses.replace(
+        fm, occ_cp=fm.occ_cp + np.array([1 << 31, 0, 0, 0]),
+        mark_cp=fm.mark_cp + (1 << 31),
+        fchr=fm.fchr - np.array([1 << 31, 0, 0, 0, 0]))
+
+
+@pytest.mark.cuda
+def test_fm_kernels_on_records_with_bit_31_set(cuda):
+    """On records whose occ and mark checkpoints have bit 31 set (int32
+    words that read negative) K3a equals its plain version and the search
+    on the records without the shift, and K3b its plain version: both read
+    the counts as uint32."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
+
+    text, fm = _fm_index(200_000, 10)
+    idx = GpuIndex.from_host(fm, cuda)
+    idx31 = GpuIndex.from_host(_fm_bit31(fm), cuda)
+    assert int(idx31.blocks[:, 64].max()) < 0
+    assert int(idx31.blocks[:, 100].max()) < 0
+    rng = np.random.default_rng(31)
+    B = 30_001
+    for sub_ftab in (False, True):
+        seeds = torch.from_numpy(_fm_seeds(text, rng, B, 22, 0.3 * sub_ftab))
+        seeds = seeds.to(cuda)
+        valid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+        got = _fm_search_held(idx31, seeds, valid, sub_ftab)
+        for g, w in zip(got, fm_cuda.search_seeds(idx, seeds, valid,
+                                                  sub_ftab)):
+            assert torch.equal(g, w)
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, B)).to(cuda)
+    valid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+    want = walk.resolve_rows_plain(idx31, rows, valid)
+    got = fm_cuda.resolve_rows(idx31, rows, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -5,6 +5,9 @@ equal the JAX function (every output is an integer: exact equality);
 the walk over every slot with no live count equals the tiled walk that
 stops at it (what the kernel path relies on); a row-sharded index never
 reaches the wrappers, and a CPU tensor never builds the kernels' library.
+The device records are the JAX package's 512 B of uint32 words, held in
+int32: equal to its records bit for bit, and read by the plain ops as the
+same words held in int64, also where a count has bit 31 set.
 The kernels themselves run on the card only (tests/test_torch_cuda.py):
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fm_kernel.py -q
@@ -12,6 +15,10 @@ The kernels themselves run on the card only (tests/test_torch_cuda.py):
         tests/test_torch_cuda.py -q -k fm_      # on the card, no JAX
 
 Inputs are made with numpy from a seed and handed to both packages."""
+
+import dataclasses
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -261,3 +268,161 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(genome, case):
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
+
+
+def _bit31(fm):
+    """``fm`` with 2^31 added to every occ count of A and every marked
+    rank: the records' checkpoint words have bit 31 set, as past 2^31
+    rows."""
+    return dataclasses.replace(
+        fm, occ_cp=fm.occ_cp + np.array([1 << 31, 0, 0, 0]),
+        mark_cp=fm.mark_cp + (1 << 31))
+
+
+@pytest.mark.parametrize("srate,bit31", [(8, False), (32, False),
+                                         (8, True)])
+def test_records_are_the_jax_uint32_records(genome, srate, bit31):
+    """The port's int32 block records are, bit for bit, the uint32 records
+    of the JAX package's DeviceIndex.from_host for the same FMIndex (512 B
+    a record), also with bit 31 set in the checkpoints; the other tables
+    are int64 holding the same values."""
+    _, fm = genome
+    fm = fm.subsample_sa(srate)
+    if bit31:
+        fm = _bit31(fm)
+    g = GpuIndex.from_host(fm, "cpu")
+    d = DeviceIndex.from_host(fm)
+    assert g.blocks.dtype == torch.int32
+    assert g.blocks.shape[1] * g.blocks.element_size() == 512
+    got = g.blocks.numpy().view(np.uint32)
+    want = np.asarray(d.blocks)
+    assert want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 64] >= 1 << 31).all() == bit31
+    for name in ("ftab", "sa_sample", "fchr"):
+        t = getattr(g, name)
+        assert t.dtype == torch.int64
+        eq(t, np.asarray(getattr(d, name)).astype(np.int64))
+
+
+def test_plain_ops_read_bit31_records_as_int64_records(genome):
+    """occ, occ_all and walk_step on records whose checkpoints have bit 31
+    set (int32 words that read negative) equal the same records held as
+    non-negative int64 words, and 2^31 above the unshifted index's
+    counts: the one gather widens and masks them."""
+    _, fm = genome
+    g = GpuIndex.from_host(_bit31(fm), "cpu")
+    g64 = dataclasses.replace(g, blocks=torch.from_numpy(
+        g.blocks.numpy().view(np.uint32).astype(np.int64)))
+    base = GpuIndex.from_host(fm, "cpu")
+    assert int(g.blocks[:, 64].max()) < 0  # bit 31 set, as int32
+    rng = np.random.default_rng(31)
+    rows = T(rng.integers(0, fm.nrows, 4000))
+    rows[:4] = T([0, fm.zoff, fm.nrows - 1, fm.nrows])
+    for c in range(4):
+        cc = torch.full_like(rows, c)
+        got = trank.occ(g, cc, rows)
+        eq(got, trank.occ(g64, cc, rows))
+        eq(got, trank.occ(base, cc, rows) + (1 << 31 if c == 0 else 0))
+    eq(trank.occ_all(g, rows), trank.occ_all(g64, rows))
+    for a, b in zip(trank.walk_step(g, rows), trank.walk_step(g64, rows)):
+        eq(a, b)
+    marked, rnk, _ = trank.walk_step(g, rows)
+    _, rnk0, _ = trank.walk_step(base, rows)
+    eq(rnk, rnk0 + (1 << 31))
+    assert bool(marked.any()) and bool((~marked).any())
+
+
+def test_random_bwt_index_is_an_lf_permutation():
+    """chip_smoke.random_bwt_index (phase 16's index of a human genome's
+    rows, past the L2) at 70,001 rows built in chunks of 16 records: LF
+    maps the rows but zoff one to one onto [1, nrows); occ at record edges
+    and around zoff counts the stored bases with the zoff rule; the ftab
+    is the plain search of each k-mer from the whole range; the seeds
+    lf_seeds reads off LF walks stay alive, and walks end at marks about
+    as often as 1 - (7/8)^8."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(70)
+    n = 70_001
+    g = smoke.random_bwt_index(n, rng, "cpu", 8, 6, chunk=16)
+    assert g.blocks.dtype == torch.int32 and g.nrows == n
+    rows = torch.arange(n)
+    rows = rows[rows != g.zoff]
+    lf = trank.lf_row(g, rows)
+    assert torch.equal(torch.sort(lf).values, torch.arange(1, n))
+    w = g.blocks[:, :64].numpy().view(np.uint32)
+    bases = ((w[..., None] >> (2 * np.arange(16))) & 3).reshape(-1)[:n]
+    at = np.array([0, 1, 1023, 1024, 1025, 40_000, n - 1, g.zoff,
+                   g.zoff + 1])
+    for c in range(4):
+        want = [(bases[:x] == c).sum() - (c == 0 and x > g.zoff) for x in at]
+        eq(trank.occ(g, torch.full((len(at),), c), T(at)), want)
+    q = torch.arange(4**6)
+    kmers = ((q[:, None] >> (2 * torch.arange(5, -1, -1))) & 3).to(torch.int8)
+    want = tss.search_seeds_plain(dataclasses.replace(g, ftab_k=7), kmers,
+                                  torch.ones(len(q), dtype=torch.bool))
+    for a, b in zip(trank.ftab_lookup(g, q), want):
+        eq(a, b)
+    seeds = smoke.lf_seeds(g, rng, 2000, 22)
+    top, bot = fm_cuda.search_seeds(g, seeds, torch.ones(2000, dtype=bool))
+    assert int((bot > top).sum()) >= 1990
+    off = fm_cuda.resolve_rows(g, rows[:8000], torch.ones(8000, dtype=bool))
+    assert 0.6 < float((off >= 0).float().mean()) < 0.72
+
+
+def _variants_tool():
+    spec = importlib.util.spec_from_file_location(
+        "torch_fm_variants", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "torch_fm_variants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv,runs", [
+    ([], [dict(tree="ROOT", int64=False)]),
+    (["--variant", "2,8", "--variant", "16,16", "--tree", "p",
+      "--int64-records"],
+     [dict(variant=[2, 8]), dict(variant=[16, 16]),
+      dict(tree="p", int64=True)]),
+    (["--variant", "3,8"], None),
+    (["--variant", "4"], None),
+])
+def test_fm_variants_tool_arguments(argv, runs):
+    """scripts/torch_fm_variants.py: with no run named it runs this
+    checkout; G and R outside the kernels' choices are refused."""
+    tool = _variants_tool()
+    if runs is None:
+        with pytest.raises(SystemExit):
+            tool.parse_args(argv)
+        return
+    got = tool.parse_args(argv).runs
+    for r in runs:
+        if "tree" in r:
+            r["tree"] = (tool.ROOT if r["tree"] == "ROOT" else
+                         os.path.abspath(r["tree"]))
+    assert got == runs
+
+
+def test_fm_variants_tool_writes_a_variant(tmp_path):
+    """A variant is the package's sources with kSearchG and kWalkR set and
+    nothing else changed, built as a library of its own; sources without
+    the constants are refused."""
+    tool = _variants_tool()
+    d = tool.write_variant(_build.CSRC, str(tmp_path / "v"), 2, 16)
+    with open(os.path.join(_build.CSRC, "fm_search.cu")) as f:
+        base = f.read().splitlines()
+    with open(os.path.join(d, "fm_search.cu")) as f:
+        got = f.read().splitlines()
+    diff = [(a, b) for a, b in zip(base, got) if a != b]
+    assert len(base) == len(got) and [b for _a, b in diff] == [
+        "constexpr int kSearchG = 2;", "constexpr int kWalkR = 16;"]
+    assert _build.library_path(d) != _build.library_path()
+    (tmp_path / "w").mkdir()
+    (tmp_path / "w" / "fm_search.cu").write_text("// no constants\n")
+    with pytest.raises(ValueError):
+        tool.write_variant(str(tmp_path / "w"), str(tmp_path / "x"), 4, 8)

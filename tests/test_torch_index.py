@@ -82,10 +82,16 @@ def test_gpu_index_matches_device_index(fasta, ftab_k):
     d = DeviceIndex.from_host(fm)
     g = GpuIndex.from_host(fm, "cpu")
     for name in ("blocks", "fchr", "ftab", "sa_sample", "ref_words"):
-        want = np.asarray(getattr(d, name)).astype(np.int64)
+        want = np.asarray(getattr(d, name))
         got = getattr(g, name)
-        assert isinstance(got, torch.Tensor) and got.dtype == torch.int64
-        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        assert isinstance(got, torch.Tensor)
+        if name == "blocks":  # the uint32 records' bits, held as int32
+            assert got.dtype == torch.int32 and want.dtype == np.uint32
+            got = got.numpy().view(np.uint32)
+        else:
+            assert got.dtype == torch.int64
+            got, want = got.numpy(), want.astype(np.int64)
+        np.testing.assert_array_equal(got, want, err_msg=name)
     assert g.zoff == int(np.asarray(d.zoff))
     assert g.nrows == int(np.asarray(d.nrows))
     assert (g.ftab_k, g.srate) == (d.ftab_k, d.srate)

@@ -155,8 +155,9 @@ def test_roofline_counts_equal_the_jax_scripts(capsys, workdir):
         lanes, S, nsteps, rmax)
     assert (shp["search_bytes"], shp["walk_bytes"], shp["total_bytes"]) == (
         search, walk, search + walk)
-    # the port's int64 record is twice the JAX package's 512 B
-    assert shp["dev_total_bytes"] == 2 * shp["total_bytes"]
+    # the port's device record is the JAX package's 512 B
+    assert shp["dev_blk"] == BLK
+    assert shp["dev_total_bytes"] == shp["total_bytes"]
 
 
 def test_bench_records_modes_and_the_jax_aligner(capsys):

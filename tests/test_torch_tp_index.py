@@ -11,6 +11,7 @@ path), then a (data=2, model=2) mesh whose aligner runs end to end and
 tests/conftest.py. Every output is an integer: the tolerance is
 equality."""
 
+import dataclasses
 import os
 import pickle
 
@@ -30,6 +31,7 @@ from omp_bowtie2_prime_tpu_torch.index.builder import build_index_from_text
 from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
 from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
 from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+from omp_bowtie2_prime_tpu_torch.ops import rank as trank
 from omp_bowtie2_prime_tpu_torch.ops.seed_search import search_resolve_seeds
 from omp_bowtie2_prime_tpu_torch.parallel.tp_index import tp_hbm_per_device
 from omp_bowtie2_prime_tpu_torch.utils import dna
@@ -181,3 +183,53 @@ def test_tp_aligner_equals_jax(runs, mode):
     """... and the JAX package's aligner on make_tp_mesh(4, n_data=2)."""
     for rank, got in enumerate(runs["ranks"]):
         assert got[mode] == runs["jax"][mode], f"rank {rank}"
+
+
+def test_tp_world_of_two_reduces_int32_records(tmp_path):
+    """A model=2 gloo world (tests/torch_dist_workers.py ``task_records``):
+    its shards hold int32 records, every record reduce moves int32 rows of
+    128 words (512 B; the SA sample's rows stay int64), and occ_all,
+    walk_step and the search + resolve through the reduces equal one
+    device's; occ_all and walk_step also on the index with bit 31 set in
+    every A count and marked rank (int32 words that read negative: one
+    owner a row keeps the sum exact). Its search is not compared: its LF
+    steps leave the rows, where a sharded gather reads zeros and a whole
+    one clamps, by design (ops/rank._owner_gather)."""
+    rng = np.random.default_rng(14)
+    text = rng.integers(0, 4, 30000).astype(np.int8)
+    fm = build_index_from_text(*join_references(["chrT"], [text.copy()]),
+                               ftab_k=8)
+    fm31 = dataclasses.replace(
+        fm, occ_cp=fm.occ_cp + np.array([1 << 31, 0, 0, 0]),
+        mark_cp=fm.mark_cp + (1 << 31))
+    rows = rng.integers(0, fm.nrows, 3000)
+    rows[:3] = [0, fm.zoff, fm.nrows - 1]
+    pos = rng.integers(0, len(text) - L, S)
+    inp = dict(fms=[fm, fm31], rows=rows, valid=np.ones(S, bool),
+               seeds=np.stack([text[p : p + L] for p in pos]).astype(
+                   np.int64),
+               lseed=rng.integers(0, 1 << 32, S))
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f)
+    ranks = workers.run_world("records", 2, str(tmp_path))
+    trows = torch.from_numpy(rows)
+    for n, one_fm in enumerate((fm, fm31)):
+        one = GpuIndex.from_host(one_fm, "cpu")
+        want = dict(occ=trank.occ_all(one, trows),
+                    walk=trank.walk_step(one, trows),
+                    search=search_resolve_seeds(
+                        one, torch.from_numpy(inp["seeds"]),
+                        torch.from_numpy(inp["valid"]), 16, 2,
+                        lane_seed=torch.from_numpy(inp["lseed"])))
+        for rank, got in enumerate(ranks):
+            got = got["indexes"][n]
+            assert got["dtype"] == "torch.int32"
+            assert torch.equal(got["occ"], want["occ"]), (n, rank)
+            for a, b in zip(got["walk"] + tuple(got["search"]) * (n == 0),
+                            want["walk"] + tuple(want["search"]) * (n == 0)):
+                assert torch.equal(a, b), (n, rank)
+    assert (want["occ"][:, 0] >= 1 << 31).all()
+    for got in ranks:
+        assert set(got["reduces"]) == {("torch.int32", 128),
+                                       ("torch.int64", 128)}
+        assert got["reduces"]["torch.int32", 128] > L - 8

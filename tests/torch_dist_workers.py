@@ -148,8 +148,9 @@ def task_tp(inp, rank, world):
     out["rows"] = (idx.blocks.shape[0], idx.sa_sample.shape[0],
                    idx.tp.rank, idx.tp.size)
     out["hbm"] = tp_hbm_per_device(fm, 4)
-    out["bytes"] = sum(getattr(idx, k).numel() * 8 for k in
-                       ("blocks", "sa_sample", "ftab", "ref_words", "fchr"))
+    out["bytes"] = sum(t.numel() * t.element_size() for t in (
+        getattr(idx, k) for k in ("blocks", "sa_sample", "ftab", "ref_words",
+                                  "fchr")))
     rank_ops.REDUCES = 0
     res = tp_search_resolve_fn(idx, mesh, 16, 2)(idx, seeds, valid, lseed)
     out["reduces"] = rank_ops.REDUCES
@@ -489,7 +490,8 @@ def task_tp_scale(inp, rank, world):
     out = fn(idx, seeds, valid, lseed)
     sync_device(device)
     search_s = time.perf_counter() - t0
-    return dict(hbm=hbm, bytes=sum(getattr(idx, f).numel() * 8
+    return dict(hbm=hbm, bytes=sum(getattr(idx, f).numel()
+                                   * getattr(idx, f).element_size()
                                    for f in fields),
                 allocated=alloc, shard_s=shard_s, search_s=search_s,
                 reduces=rank_ops.REDUCES, rows=(idx.blocks.shape[0],
@@ -497,9 +499,49 @@ def task_tp_scale(inp, rank, world):
                 out=[t.cpu().numpy() for t in out], device=str(device))
 
 
+def task_records(inp, rank, world):
+    """A model=WORLD mesh on the CPU over each index of ``inp["fms"]``:
+    the shard's record dtype, every reduce's dtype and row width (seen by
+    wrapping all_reduce), and occ_all, walk_step and the search + resolve
+    through the reduces."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.ops.seed_search import (
+        search_resolve_seeds)
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
+        make_tp_mesh, shard_index)
+
+    reduces = collections.Counter()
+    real = dist.all_reduce
+
+    def spy(t, *a, **k):
+        reduces[(str(t.dtype), t.shape[-1])] += 1
+        return real(t, *a, **k)
+
+    dist.all_reduce = spy
+    mesh = make_tp_mesh(world, device_type="cpu")
+    rows = torch.from_numpy(inp["rows"])
+    out = []
+    for fm in inp["fms"]:
+        idx = shard_index(fm, mesh)
+        marked, rnk, nxt = rank_ops.walk_step(idx, rows)
+        search = search_resolve_seeds(
+            idx, torch.from_numpy(inp["seeds"]), torch.from_numpy(
+                inp["valid"]), 16, 2, lane_seed=torch.from_numpy(
+                    inp["lseed"]))
+        out.append(dict(
+            dtype=str(idx.blocks.dtype), occ=rank_ops.occ_all(idx, rows),
+            walk=(marked, rnk, nxt), search=list(search)))
+    return dict(indexes=out, reduces=dict(reduces))
+
+
 TASKS = dict(data=task_data, tp=task_tp, shard=task_shard,
              blocked=task_blocked, tp_cuda=task_tp_cuda, pairs=task_pairs,
-             bench=task_bench, tp_scale=task_tp_scale)
+             bench=task_bench, tp_scale=task_tp_scale, records=task_records)
 
 
 def main():
