@@ -63,9 +63,10 @@ constexpr int kOcc4 = 16;     // words 64..67: occ counts at the block start
 constexpr int kMark4 = 17;    // words 68..99: the SA-mark bitmap
 constexpr int kMarkCp = 100;  // word 100: marked rank at the block start
 constexpr int kWarpsPerBlock = 8;
-// threads a range end of a search step (16 / kSearchG chunks a thread)
-// and lanes a row of the walk: the fastest of 1, 2, 4, 8, 16 and of 4, 8,
-// 16, 32 on an index whose records pass the L2 (PERF.md)
+// threads a range end of a search step (16 / kSearchG chunks a thread,
+// 16 / kSearchG seed lanes a warp) and lanes a row of the walk (32 /
+// kWalkR rows a warp): the fastest of 1, 2, 4, 8, 16 and of 4, 8, 16, 32
+// on an index whose records pass the L2 (PERF.md)
 constexpr int kSearchG = 4;
 constexpr int kWalkR = 8;
 
@@ -189,19 +190,19 @@ __device__ __forceinline__ T group_sum(T v) {
   return v;
 }
 
-// G threads a range end, 2G a seed lane, 16 / G seed lanes a warp. seeds
-// [B, L] (4 = N, negative = padding), valid [B] -> top, bot [B]. Every
-// lane of a warp runs the same steps (the step count is the launch's); a
-// seed lane whose range empties, or that has nothing to do at a step,
-// reads nothing there.
-template <typename S, int G>
+// kSearchG threads a range end, two range ends a seed lane. seeds [B, L]
+// (4 = N, negative = padding), valid [B] -> top, bot [B]. Every lane of a
+// warp runs the same steps (the step count is the launch's); a seed lane
+// whose range empties, or that has nothing to do at a step, reads nothing
+// there.
+template <typename S>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fm_search_kernel(const S* __restrict__ seeds,
                  const uint8_t* __restrict__ valid, int B, int L, Fm fm,
                  const int64_t* __restrict__ ftab,
                  long long nftab, long long nrows, int ftab_k, int sub_ftab,
                  int64_t* __restrict__ top_out, int64_t* __restrict__ bot_out) {
-  constexpr int T = 2 * G, Q = 16 / G;
+  constexpr int G = kSearchG, T = 2 * G, Q = 16 / G;
   // a thread's chunks of a step and its occ count, in shared memory
   __shared__ uint4 stage[Q][32 * kWarpsPerBlock];
   __shared__ uint32_t stage_cp[32 * kWarpsPerBlock];
@@ -302,16 +303,16 @@ fm_search_kernel(const S* __restrict__ seeds,
   }
 }
 
-// R lanes a row, 32 / R rows a warp (R <= 16). rows, valid [nr] ->
-// joined-text offsets [nr]; -1 where the lane is not valid or its walk
-// finds no marked row within srate steps. A step is one round of loads;
-// each row's SA sample word is read once, after the warp's last step.
-template <int R>
+// kWalkR lanes a row. rows, valid [nr] -> joined-text offsets [nr]; -1
+// where the lane is not valid or its walk finds no marked row within
+// srate steps. A step is one round of loads; each row's SA sample word is
+// read once, after the warp's last step.
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fm_walk_kernel(const int64_t* __restrict__ rows,
                const uint8_t* __restrict__ valid, int nr, Fm fm,
                const int64_t* __restrict__ sa, long long nsa, int srate,
                int64_t* __restrict__ out) {
+  constexpr int R = kWalkR;
   constexpr int QB = 16 / R;             // chunks of BWT words a lane
   constexpr int QM = R < 8 ? 8 / R : 1;  // chunks of bitmap words a lane
   const int lane = threadIdx.x & 31;
@@ -422,12 +423,12 @@ extern "C" int fm_search_launch(const void* seeds, int seed_bytes,
   const dim3 grid(grid_of(B, 16 / kSearchG)), block(32 * kWarpsPerBlock);
   cudaStream_t st = (cudaStream_t)stream;
   if (seed_bytes == 1)
-    fm_search_kernel<int8_t, kSearchG><<<grid, block, 0, st>>>(
+    fm_search_kernel<int8_t><<<grid, block, 0, st>>>(
         (const int8_t*)seeds, (const uint8_t*)valid, B, L, fm,
         (const int64_t*)ftab, nftab, nrows, ftab_k, sub_ftab, (int64_t*)top,
         (int64_t*)bot);
   else
-    fm_search_kernel<int64_t, kSearchG><<<grid, block, 0, st>>>(
+    fm_search_kernel<int64_t><<<grid, block, 0, st>>>(
         (const int64_t*)seeds, (const uint8_t*)valid, B, L, fm,
         (const int64_t*)ftab, nftab, nrows, ftab_k, sub_ftab, (int64_t*)top,
         (int64_t*)bot);
@@ -444,8 +445,8 @@ extern "C" int fm_walk_launch(const void* rows, const void* valid, int R,
   if (R <= 0) return 0;
   if ((uintptr_t)blocks & 15) return (int)cudaErrorInvalidValue;
   const Fm fm{(const uint32_t*)blocks, nblocks, (const int64_t*)fchr, zoff};
-  fm_walk_kernel<kWalkR><<<grid_of(R, 32 / kWalkR), 32 * kWarpsPerBlock, 0,
-                           (cudaStream_t)stream>>>(
+  fm_walk_kernel<<<grid_of(R, 32 / kWalkR), 32 * kWarpsPerBlock, 0,
+                   (cudaStream_t)stream>>>(
       (const int64_t*)rows, (const uint8_t*)valid, R, fm, (const int64_t*)sa,
       nsa, srate, (int64_t*)out);
   return (int)cudaGetLastError();

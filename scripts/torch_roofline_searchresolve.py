@@ -17,7 +17,9 @@ there if ``--workdir`` lacks it):
   2. the real grid round (``_grid_run``, round 0, its copy back
      included) on ``--batch`` reads of ``synth_reads``;
   3. a DEPENDENT gather chain of the same shape over the same
-     ``idx.blocks`` tensor (step i's rows come from step i-1's values):
+     ``idx.blocks`` tensor, its 512 B rows read as 64 int64 words (a
+     row's sum then reads the record as it gathers it, with no widening
+     of int32 words; step i's rows come from step i-1's values):
      the bound of any implementation that issues the same dependent row
      reads. Eager (one launch a step, what the port pays today) and
      captured once in a CUDA graph (the counterpart of the JAX script's
@@ -145,7 +147,7 @@ def main(argv=None):
         "GB/s (counted device bytes / wall)")
 
     # ---- 3. dependent gather chain, same shape, same tensor ----
-    blocks = al.idx.blocks
+    blocks = al.idx.blocks.view(torch.int64)  # 64 words, 512 B a row
     nblk = blocks.shape[0]
     ks = 1 + 2 * shp["nsteps"]  # rows a search lane reads
     kw = shp["srate"] + 1  # rows a walk slot reads

@@ -333,6 +333,15 @@ def test_plain_ops_read_bit31_records_as_int64_records(genome):
     assert bool(marked.any()) and bool((~marked).any())
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_random_bwt_index_is_an_lf_permutation():
     """chip_smoke.random_bwt_index (phase 16's index of a human genome's
     rows, past the L2) at 70,001 rows built in chunks of 16 records: LF
@@ -341,11 +350,7 @@ def test_random_bwt_index_is_an_lf_permutation():
     is the plain search of each k-mer from the whole range; the seeds
     lf_seeds reads off LF walks stay alive, and walks end at marks about
     as often as 1 - (7/8)^8."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     rng = np.random.default_rng(70)
     n = 70_001
     g = smoke.random_bwt_index(n, rng, "cpu", 8, 6, chunk=16)
@@ -374,55 +379,79 @@ def test_random_bwt_index_is_an_lf_permutation():
     assert 0.6 < float((off >= 0).float().mean()) < 0.72
 
 
-def _variants_tool():
-    spec = importlib.util.spec_from_file_location(
-        "torch_fm_variants", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "scripts", "torch_fm_variants.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _sector_set(k, nbits, tag):
+    """The 32-byte sectors of the first k values of nbits bits, packed:
+    one (tag, i) each."""
+    return {(tag, i) for i in range(-(-k * nbits // 256))}
 
 
-@pytest.mark.parametrize("argv,runs", [
-    ([], [dict(tree="ROOT", int64=False)]),
-    (["--variant", "2,8", "--variant", "16,16", "--tree", "p",
-      "--int64-records"],
-     [dict(variant=[2, 8]), dict(variant=[16, 16]),
-      dict(tree="p", int64=True)]),
-    (["--variant", "3,8"], None),
-    (["--variant", "4"], None),
-])
-def test_fm_variants_tool_arguments(argv, runs):
-    """scripts/torch_fm_variants.py: with no run named it runs this
-    checkout; G and R outside the kernels' choices are refused."""
-    tool = _variants_tool()
-    if runs is None:
-        with pytest.raises(SystemExit):
-            tool.parse_args(argv)
-        return
-    got = tool.parse_args(argv).runs
-    for r in runs:
-        if "tree" in r:
-            r["tree"] = (tool.ROOT if r["tree"] == "ROOT" else
-                         os.path.abspath(r["tree"]))
-    assert got == runs
+@pytest.mark.parametrize("L,short,seed", [(22, 0.0, 1), (22, 0.3, 2),
+                                          (10, 0.3, 3), (16, 0.0, 4)])
+def test_search_bound_reads_each_sector_of_a_step_once(genome, L, short,
+                                                       seed):
+    """chip_smoke.search_bytes (K3a's layout-free bound) counts, at each
+    LF step of each updated lane, the union of the sectors its two range
+    ends read (the bases below each end's offset and the base's count, in
+    each end's record), once: one record's sectors once where both ends
+    share it, as most one-row ranges do; plus the inputs, the outputs and
+    an alive lane's two ftab sectors. Both kinds of step occur here."""
+    smoke = _chip_smoke()
+    text, fm = genome
+    g = GpuIndex.from_host(fm, "cpu")
+    rng = np.random.default_rng(seed)
+    S = 400
+    seeds = torch.from_numpy(_seeds(text, rng, S, L, short)).to(torch.int64)
+    valid = torch.from_numpy(rng.random(S) < 0.9)
+    sub = short > 0
+    steps = []
+    tss.search_seeds_plain(g, seeds, valid, sub, on_step=lambda u, t, b:
+                           steps.append((u.tolist(), t.tolist(), b.tolist())))
+    want, kinds = 0, set()
+    for upd, top, bot in steps:
+        for u, t, b in zip(upd, top, bot):
+            if u:
+                secs = set()
+                for r in (t, b):
+                    secs |= {(r >> 10, x) for x in _sector_set(
+                        r & 1023, 2, "bwt") | {("occ", 0)}}
+                want += len(secs)
+                kinds.add(t >> 10 == b >> 10)
+    assert kinds == {True, False}
+    alive = valid & ~(seeds == 4).any(dim=-1)
+    ftab = 2 * int(alive.sum()) if L >= g.ftab_k else 0
+    assert smoke.search_bytes(g, seeds, valid, sub) == (
+        8 * S * L + S + 16 * S + 32 * (want + ftab + 1))
 
 
-def test_fm_variants_tool_writes_a_variant(tmp_path):
-    """A variant is the package's sources with kSearchG and kWalkR set and
-    nothing else changed, built as a library of its own; sources without
-    the constants are refused."""
-    tool = _variants_tool()
-    d = tool.write_variant(_build.CSRC, str(tmp_path / "v"), 2, 16)
-    with open(os.path.join(_build.CSRC, "fm_search.cu")) as f:
-        base = f.read().splitlines()
-    with open(os.path.join(d, "fm_search.cu")) as f:
-        got = f.read().splitlines()
-    diff = [(a, b) for a, b in zip(base, got) if a != b]
-    assert len(base) == len(got) and [b for _a, b in diff] == [
-        "constexpr int kSearchG = 2;", "constexpr int kWalkR = 16;"]
-    assert _build.library_path(d) != _build.library_path()
-    (tmp_path / "w").mkdir()
-    (tmp_path / "w" / "fm_search.cu").write_text("// no constants\n")
-    with pytest.raises(ValueError):
-        tool.write_variant(str(tmp_path / "w"), str(tmp_path / "x"), 4, 8)
+@pytest.mark.parametrize("srate", [8, 32])
+def test_walk_bound_reads_each_sector_of_a_step_once(genome, srate):
+    """chip_smoke.walk_bytes (K3b's layout-free bound) counts, at each step
+    of each live row: on a miss the sector of its mark bit, the sectors of
+    its base and the bases below it, and its base's count; on a hit the
+    sectors of its mark bit and the marks below it, the marked rank and
+    the row's SA sample word; plus rows, valid and the offsets once."""
+    smoke = _chip_smoke()
+    _, fm = genome
+    g = GpuIndex.from_host(fm.subsample_sa(srate), "cpu")
+    rng = np.random.default_rng(srate)
+    R = 600
+    rows = T(rng.integers(0, fm.nrows, R))
+    live = torch.from_numpy(rng.random(R) < 0.9)
+    want, hits, row, run = 0, 0, rows.clone(), live.tolist()
+    for _ in range(srate):
+        marked, _rnk, nxt = trank.walk_step(g, row)
+        for j, (r, m) in enumerate(zip(row.tolist(), marked.tolist())):
+            if not run[j]:
+                continue
+            k = r & 1023
+            if m:
+                want += len(_sector_set(k + 1, 1, "mark") | {("rank", 0),
+                                                            ("sa", 0)})
+                hits += 1
+                run[j] = False
+            else:
+                want += len({("mark", k >> 8)} | _sector_set(k + 1, 2, "bwt")
+                            | {("occ", 0)})
+        row = nxt
+    assert hits > R // 2
+    assert smoke.walk_bytes(g, rows, live) == 17 * R + 32 * want
