@@ -113,10 +113,15 @@ Phases, one line each, stamped with the seconds since the start:
      replicated (one rank, a model axis, no cut) its launches by (L, C)
      are the phase's, mate rescue's 160x641 among them; a tp run reduced
      on its aligners' streams and its shard holds ``tp_hbm_per_device``'s
-     bytes; reads/s, its own blocks' reads, dataGather, REDUCES and
-     tpReduce. (c) phase 12 (d)'s A^n index sharded over two gloo ranks:
-     each rank's bytes on the card, and the FM checks of (d) at 2^20 rows
-     across the shard boundary and past 2^31 through the reduces.
+     bytes; a tp run launched every tp kernel (K3a-tp, K3b-tp and the
+     walk's SA word and finish) and neither whole-index FM kernel, a
+     data run the reverse; reads/s, its own blocks' reads,
+     dataGather, REDUCES, the bytes a reduce and tpReduce. (c) phase 12
+     (d)'s A^n index sharded over two gloo ranks: each rank's bytes on
+     the card, and the FM checks of (d) at 2^20 rows across the shard
+     boundary and past 2^31 through the reduces (the search and the walk
+     through the tp kernels, the record-level ops through the record
+     reduce).
  14. deep repeats (``run_deep``: scripts/torch_deep_repeat_differential.py
      at its defaults): families of 50 and 500 exact copies of a 300 bp
      unit in a 2 Mbp genome, 2,000 reads a family, where a seed's SA
@@ -146,10 +151,18 @@ Phases, one line each, stamped with the seconds since the start:
      and the share of them reached, the device
      records' bytes (phase 5's index, the A^n index), and the whole
      search_resolve_seeds under torch's sync debug mode: no host sync
-     inside it. Every path
-     that aligns on a whole index must launch both (their launches are
-     logged beside K1's and K2's); phase 12 (d) runs them past 2^31 rows;
-     phase 13's tp meshes (a row-sharded index) must launch neither.
+     inside it. The row-sharded steps (K3a-tp, K3b-tp: a launch a step,
+     the owners' counts reduced between launches; the walk's SA word and
+     finish, K3b-tp-sa and K3b-tp-finish) on phase 5's index cut into 1,
+     2 and 4 in-process shards and on the 3.1 G-row index cut into 2
+     (``FM_TP_CASES``, views of the whole): every step's partials against
+     the plain steps', the outputs against the whole index's kernels,
+     each kernel's launches on shard 0 timed L2-warm and cold against
+     its layout-free bound (``tp_search_bytes``, ``tp_walk_bytes``). Every
+     path that aligns on a whole index must launch K3a and K3b (their
+     launches are logged beside K1's and K2's); phase 12 (d) runs them
+     past 2^31 rows; phase 13's tp meshes (a row-sharded index) must
+     launch every tp kernel and neither whole-index one.
 
 ``--profile`` adds one run of each path (and of the ``-p 2`` ones) under
 torch.profiler and prints the device's busy share, the kernels' time by
@@ -158,8 +171,9 @@ phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
 
 Then one JSON line describing the kernels (each DP kernel's narrow and
 wide body is an entry of its own, with its own time, bound and launches,
-the launches also by path; K3a and K3b an entry each) and, last, the
-result line.
+the launches also by path; K3a, K3b, K3a-tp, K3b-tp and the tp walk's
+SA word and finish kernels an entry each)
+and, last, the result line.
 Exits non-zero, printing no result, on any failure, without a CUDA
 device, or without the package beside it. Imports no JAX.
 """
@@ -241,7 +255,34 @@ KERNELS = {
         source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
         replaces="omp_bowtie2_prime_tpu/ops/walk.py:19",
         device_kernel="fm_walk_kernel"),
+    # the same functions on a row-sharded index, a launch a step (the
+    # JAX package runs them under shard_map, each LF step's record
+    # psum'd by _gather_block, ops/rank.py:103, the SA row by sa_lookup,
+    # :126); the walk's SA word and its finish are kernels of their own
+    "K3a-tp": dict(
+        name="fm_tp_search_step", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/seed_search.py:31",
+        device_kernel="fm_tp_search_step_kernel"),
+    "K3b-tp": dict(
+        name="fm_tp_walk_step", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/walk.py:19",
+        device_kernel="fm_tp_walk_step_kernel"),
+    "K3b-tp-sa": dict(
+        name="fm_tp_sa", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/rank.py:126",
+        device_kernel="fm_tp_sa_kernel"),
+    "K3b-tp-finish": dict(
+        name="fm_tp_finish", route="cuda",
+        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
+        replaces="omp_bowtie2_prime_tpu/ops/walk.py:83",
+        device_kernel="fm_tp_finish_kernel"),
 }
+FM_TAGS = ("K3a", "K3b", "K3a-tp", "K3b-tp", "K3b-tp-sa", "K3b-tp-finish")
+# the row-sharded kernels, in the order of tp_counts
+TP_TAGS = FM_TAGS[2:]
 # K3a's and K3b's launches of every counted run (``counted``, phase 13's
 # ranks, phase 15), which main attributes to the paths in turn
 FM_TOTAL: collections.Counter = collections.Counter()
@@ -829,6 +870,11 @@ L2_BYTES = 50 << 20
 # long enough a fill (~0.2 ms) to keep the card busy while the host
 # enqueues the launch, so the events time the launch alone
 L2_FLUSH_BYTES = 512 << 20
+# the row-sharded steps (K3a-tp, K3b-tp) on FM_CASES' inputs: the case's
+# index cut into D in-process shards (parallel/tp_index.shard_views:
+# views of the whole, no copy), by case label; the kernels line reports
+# the 3.1 G-row case
+FM_TP_CASES = {FM_CASES[0][0]: (1, 2, 4), FM_CASES[-1][0]: (2,)}
 
 
 def fm_seeds(rng, text, S, L, short_frac):
@@ -1051,6 +1097,235 @@ def walk_bytes(idx, rows, valid):
     return 17 * rows.shape[0] + 32 * sectors
 
 
+def _held_rows(shard):
+    """[lo, hi): the records (or SA rows) a shard holds, of the whole."""
+    lo = shard.tp.rank * shard.tp.nblk_loc
+    return lo, lo + shard.blocks.shape[0]
+
+
+def tp_search_bytes(idx, shard, seeds, valid, sub_ftab):
+    """Bytes one shard's launches of the row-sharded search must move on
+    these inputs, whatever the record's layout: ``search_bytes``' sectors
+    for the range ends whose record the shard holds (a lane's two ends
+    in one record: their union), the ftab's two sectors of an alive lane,
+    the seeds, valid and the result once, and at each of the search's
+    step boundaries the state (top, bot, flags: 17 B a lane) written and
+    read back, the partials (16 B a lane) written and the reduced ones
+    read. The ranges come from the whole index's plain search (``idx``),
+    which the step loop equals."""
+    S, L = seeds.shape
+    lo, hi = _held_rows(shard)
+    sectors = [0]
+
+    def on_step(upd, top, bot):
+        t, b = top[upd], bot[upd]
+        ht = ((t >> 10) >= lo) & ((t >> 10) < hi)
+        hb = ((b >> 10) >= lo) & ((b >> 10) < hi)
+        st = torch.where(ht, _sectors(2, t & 1023) + 1, 0)
+        sb = torch.where(hb, _sectors(2, b & 1023) + 1, 0)
+        one = torch.where(ht, _sectors(2, torch.maximum(t & 1023, b & 1023))
+                          + 1, 0)
+        sectors[0] += int(torch.where(t >> 10 == b >> 10, one, st + sb).sum())
+
+    seed_search.search_seeds_plain(idx, seeds, valid, sub_ftab,
+                                   on_step=on_step)
+    alive = valid & ~(seeds == 4).any(dim=-1)
+    ftab = 2 * int(alive.sum()) if L >= idx.ftab_k else 0
+    nsteps, _ = seed_search.search_geometry(L, idx.ftab_k, sub_ftab)
+    per_step = 2 * 17 + 2 * 16
+    return (seeds.numel() * seeds.element_size() + S + 16 * S
+            + 32 * (sectors[0] + ftab) + nsteps * S * per_step)
+
+
+def tp_walk_bytes(idx, shard, rows, valid):
+    """Bytes one shard's launches of the row-sharded walk must move on
+    these inputs, whatever the record's layout, by kernel (K3b-tp, its SA
+    word, its finish): ``walk_bytes``' sectors of each step for the rows
+    whose record the shard holds (a hit: its mark bits and marked rank; a
+    miss: its mark bit, bases and occ count) and the SA word of an ended
+    lane whose sample row it holds; rows, valid and the offsets once;
+    the partials (16 B a lane, 8 for the SA word) written and the
+    reduced ones read; and at each boundary between two launches the
+    state a lane needs, written and read back: its row, or its marked
+    rank once it has ended (it reads its row no more), in 8 B, and in one
+    byte its steps (< srate <= 64) and whether it walks, has ended or is
+    dead; after the SA word the byte alone. The steps come from the
+    whole index's plain walk (``idx``)."""
+    from omp_bowtie2_prime_tpu_torch.ops import rank as fm_rank
+
+    lo, hi = _held_rows(shard)
+    slo = shard.tp.rank * shard.tp.nsa_loc
+    shi = slo + shard.sa_sample.shape[0]
+    row, live, sectors = rows.clone(), valid.clone(), 0
+    rnk = torch.zeros_like(row)
+    ended = torch.zeros_like(valid)
+    for _ in range(idx.srate):
+        marked, r, nxt = fm_rank.walk_step(idx, row)
+        k = row & 1023
+        held = ((row >> 10) >= lo) & ((row >> 10) < hi)
+        hit, miss = marked & live, ~marked & live
+        sectors += int((_sectors(1, k[hit & held] + 1) + 1).sum())
+        sectors += int((_sectors(2, k[miss & held] + 1) + 2).sum())
+        rnk = torch.where(hit, r, rnk)
+        ended |= hit
+        live = miss
+        row = torch.where(miss, nxt, row)
+    sa_held = ended & ((rnk >> 7) >= slo) & ((rnk >> 7) < shi)
+    R, s = rows.shape[0], idx.srate
+    # steps 0 .. srate - 1 write srate states and partials, and read back
+    # all but the last (the SA word's launch reads those)
+    return {"K3b-tp": 9 * R + 32 * sectors
+            + R * ((2 * s - 1) * 9 + (2 * s - 1) * 16),
+            "K3b-tp-sa": 32 * int(sa_held.sum()) + R * (9 + 16 + 1 + 8),
+            "K3b-tp-finish": R * (1 + 8 + 8)}
+
+
+def time_launches(recs, n, flush=None):
+    """Summed mean ms of each recorded launch (``tp_replay``), each run n
+    times on the state it found (restored, untimed, before every run),
+    the events around the launch alone; with ``flush``, overwritten
+    before every run (L2-cold), else a spin of the card's of ~50 us: the
+    host enqueues the launch while the card is busy, so the events time
+    the launch, not the host's call."""
+    total = 0.0
+    for fn, idx, args, snap, st in recs:
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(n)]
+        for i, (a, b) in enumerate(ev):
+            for key, v in snap.items():
+                for dst, src in zip(st[key] if isinstance(st[key], list)
+                                    else [st[key]],
+                                    v if isinstance(v, list) else [v]):
+                    dst.copy_(src)
+            if flush is not None:
+                flush.fill_(i)
+            else:
+                torch.cuda._sleep(100_000)
+            a.record()
+            fn(idx, *args, st)
+            b.record()
+        torch.cuda.synchronize()
+        total += sum(a.elapsed_time(b) for a, b in ev) / n
+    return total
+
+
+def _tp_tag(kind, a):
+    """The kernel a step of a row-sharded loop launches, from its
+    arguments past the index: the search's step, the walk's step (rows,
+    valid, s, srate, state: s < srate), SA word (s == srate) or finish
+    (valid, state)."""
+    if kind == "search":
+        return "K3a-tp"
+    if len(a) == 2:
+        return "K3b-tp-finish"
+    return "K3b-tp" if a[2] < a[3] else "K3b-tp-sa"
+
+
+def tp_replay(kind, shards, args):
+    """A row-sharded step loop (``kind``: "search", K3a-tp, on (seeds,
+    valid, sub_ftab); "walk", K3b-tp with its SA word and finish, on
+    (rows, valid)) over in-process ``shards`` through the kernels and
+    through the plain steps on the card: every step's partials of every
+    shard and the outputs bit for bit. Returns (outputs, {kernel tag:
+    (the plain steps' ms on shard 0, each timed once, the kernel's
+    launches on shard 0, each with a copy of the state it found, for
+    ``time_launches``)}). Raises on the first difference."""
+    recs, plain = collections.defaultdict(list), collections.Counter()
+    kparts, pparts = [], []
+
+    def snapshot(st):
+        return {k: [t.clone() for t in v] if isinstance(v, list)
+                else v.clone() for k, v in st.items()}
+
+    def recorded(fn):
+        def step(idx, *a):
+            if idx is shards[0]:
+                recs[_tp_tag(kind, a)].append(
+                    (fn, idx, a[:-1], snapshot(a[-1]), a[-1]))
+            fn(idx, *a)
+        return step
+
+    def timed(fn):
+        def step(idx, *a):
+            if idx is not shards[0]:
+                return fn(idx, *a)
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            fn(idx, *a)
+            t1.record()
+            t1.synchronize()
+            plain[_tp_tag(kind, a)] += t0.elapsed_time(t1)
+        return step
+
+    def grab(acc):
+        return lambda i, parts: acc.append([p.clone() for p in parts])
+
+    if kind == "search":
+        got = seed_search.tp_search_loop(
+            shards, *args, recorded(fm_cuda._tp_search_step), grab(kparts))
+        got = tuple(g.clone() for g in got)
+        want = seed_search.tp_search_loop(
+            shards, *args, timed(seed_search.tp_search_step_plain),
+            grab(pparts))
+    else:
+        got = (walk.tp_walk_loop(
+            shards, *args, recorded(fm_cuda._tp_walk_step),
+            recorded(fm_cuda._tp_walk_finish), grab(kparts)).clone(),)
+        want = (walk.tp_walk_loop(
+            shards, *args, timed(walk.tp_walk_step_plain),
+            timed(walk.tp_walk_finish_plain), grab(pparts)),)
+    torch.cuda.synchronize()
+    bad = [(i, r) for i, (ks, ps) in enumerate(zip(kparts, pparts))
+           for r, (k, p) in enumerate(zip(ks, ps)) if not torch.equal(k, p)]
+    if bad or len(kparts) != len(pparts) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(
+            f"{kind} tp kernels != plain steps over {len(shards)} shards: "
+            f"partials differ at (step, shard) {bad[:8]}, outputs equal "
+            f"{[torch.equal(g, w) for g, w in zip(got, want)]}")
+    return got, {tag: (plain[tag], recs[tag]) for tag in recs}
+
+
+def tp_hold(kind, label, whole, shards, args, flush, floor):
+    """One row-sharded loop (``kind``: "search", K3a-tp; "walk", K3b-tp,
+    K3b-tp-sa and K3b-tp-finish) on one case: its kernels against the
+    plain steps (``tp_replay``), its outputs against the whole index's
+    kernel, and each kernel's launches on shard 0 timed L2-warm and cold
+    against its part of ``tp_search_bytes`` / ``tp_walk_bytes``. Returns
+    {kernel tag: the case's row}."""
+    got, held = tp_replay(kind, shards, args)
+    ref = (fm_cuda.search_seeds(whole, *args) if kind == "search" else
+           (fm_cuda.resolve_rows(whole, *args),))
+    if not all(torch.equal(g, w) for g, w in zip(got, ref)):
+        raise AssertionError(f"{kind} at {label}: the tp loop over "
+                             f"{len(shards)} shards != the whole index's")
+    nbytes = ({"K3a-tp": tp_search_bytes(whole, shards[0], *args)}
+              if kind == "search" else tp_walk_bytes(whole, shards[0], *args))
+    label = f"{label}, D = {len(shards)}"
+    out = {}
+    for tag, (plain_ms, recs) in held.items():
+        ms = time_launches(recs, 20)
+        cold = time_launches(recs, 20, flush)
+        bound_ms = 1e3 * nbytes[tag] / HBM_BYTES_PER_S
+        log(f"[16] {tag} {label}: {got[0].shape[0]} lanes, {len(recs)} "
+            f"launches on shard 0 (of {shards[0].blocks.shape[0]} records), "
+            f"kernel {ms:.4f} ms warm, {cold:.4f} ms L2-cold (each launch's "
+            f"mean of 20, summed), plain steps on shard 0 {plain_ms:.3f} "
+            f"ms, bound {bound_ms:.4f} ms (bytes: {nbytes[tag]}, "
+            f"layout-free; "
+            f"{'' if floor else 'no floor: the records fit the L2; '}"
+            f"over the memory rate), share of the bound {bound_ms / ms:.3f} "
+            f"warm, {bound_ms / cold:.3f} cold, max_abs_err 0 (every step's "
+            "partials and the outputs; tolerance: exact)")
+        out[tag] = dict(label=label, lanes=got[0].shape[0],
+                        launches_timed=len(recs), ms=ms, ms_cold=cold,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by="bytes", bound_is_floor=floor,
+                        bound_share=bound_ms / ms,
+                        bound_share_cold=bound_ms / cold, max_abs_err=0)
+    return out
+
+
 def time_cold_ms(fn, n, flush):
     """(median, min, max) ms of n launches of ``fn``, each after
     overwriting ``flush`` (past the L2: every record read comes from
@@ -1112,8 +1387,12 @@ def check_fm(idx_paths, rng):
     the cases of FM_CASES (the walk on the rows the round samples from
     the kernel's ranges, range_cap 16, every slot of the round's; on the
     offset cases on rows at those offsets), timed L2-warm and L2-cold,
-    with their layout-free bounds; the device records' bytes of phase 5's
-    index and of phase 12 (d)'s A^n index; on the first case the whole
+    with their layout-free bounds; the tp kernels on the same inputs
+    over the index cut into the in-process shards of FM_TP_CASES, every
+    step's partials against the plain steps' and the outputs against
+    the whole index's kernels, each kernel's launches on shard 0 timed
+    (``tp_hold``); the device records' bytes of phase 5's index and of
+    phase 12 (d)'s A^n index; on the first case the whole
     search_resolve_seeds with torch's sync debug mode set to raise (first
     shown to raise on an int() of a device value): no host sync inside
     it, and its results equal the plain composition's. Returns the
@@ -1122,8 +1401,10 @@ def check_fm(idx_paths, rng):
         DEV_BLOCK_U32, DEV_OCC_BLOCK, FMIndex, GpuIndex)
     from omp_bowtie2_prime_tpu_torch.utils import dna
 
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
     t_phase = time.perf_counter()
-    rows = {"K3a": [], "K3b": []}
+    rows = {tag: [] for tag in FM_TAGS}
     hosts = {}
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                         device="cuda")
@@ -1174,6 +1455,14 @@ def check_fm(idx_paths, rng):
             lambda: fm_cuda.resolve_rows(idx, r, live),
             lambda: walk.resolve_rows_plain(idx, r, live, nlive),
             walk_bytes(idx, r, live), flush, floor))
+        for d in FM_TP_CASES.get(label, ()):
+            shards = shard_views(idx, d)
+            for kind, args in (("search", (seeds, valid, sub)),
+                               ("walk", (r, live))):
+                for tag, row in tp_hold(kind, label, idx, shards, args,
+                                        flush, floor).items():
+                    rows[tag].append(row)
+            del shards
         if n == 0:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -1215,9 +1504,9 @@ def check_fm(idx_paths, rng):
         bound_ms=head[tag]["bound_ms"], bound_by="bytes",
         bound_share=head[tag]["bound_share"],
         bound_share_cold=head[tag]["bound_share_cold"],
-        # no single PyTorch call computes an FM backward search or an SA
-        # walk; the yardstick is a dependent chain of row gathers
-        # (scripts/torch_roofline_searchresolve.py)
+        # no single PyTorch call computes an FM backward search, an SA
+        # walk or their steps on a shard; the yardstick is a dependent
+        # chain of row gathers (scripts/torch_roofline_searchresolve.py)
         library_ms=None, device_kernel=KERNELS[tag]["device_kernel"],
         launches_by_path={}, shapes=rows[tag]) for tag in rows}
 
@@ -1236,15 +1525,28 @@ def align(idx, fq, sam, device, local, flags=()):
                     + (["--local"] if local else []))
 
 
+TP_COUNTERS = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA",
+               "LAUNCHES_TP_FINISH")
+
+
 def zero_fm_counts():
     fm_cuda.LAUNCHES_SEARCH = fm_cuda.LAUNCHES_WALK = 0
+    for name in TP_COUNTERS:
+        setattr(fm_cuda, name, 0)
     fm_cuda.STREAMS.clear()
 
 
+def tp_counts():
+    """The launches of the row-sharded kernels (TP_TAGS: the search step,
+    the walk step, the SA word, the finish) since ``zero_fm_counts``."""
+    return [getattr(fm_cuda, name) for name in TP_COUNTERS]
+
+
 def fm_counts():
-    """(K3a, K3b) launches since ``zero_fm_counts``, added to FM_TOTAL."""
+    """(K3a, K3b) launches since ``zero_fm_counts``, added to FM_TOTAL
+    with the row-sharded kernels'."""
     got = (fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK)
-    FM_TOTAL.update(K3a=got[0], K3b=got[1])
+    FM_TOTAL.update(dict(zip(FM_TAGS, got + tuple(tp_counts()))))
     return got
 
 
@@ -2312,7 +2614,7 @@ def rank13_align(run, world, rank, wd, device):
     sw_cuda.LAUNCHES = sw_cuda.LAUNCHES_LOCAL = 0
     sw_cuda.SHAPES.clear()
     zero_fm_counts()
-    rank_ops.REDUCES = 0
+    rank_ops.REDUCES = rank_ops.REDUCE_BYTES = 0
     rank_ops.REDUCE_STREAMS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2361,8 +2663,9 @@ def rank13_align(run, world, rank, wd, device):
         tag=run["tag"], sam=sam, reads=n, wall=wall,
         launches=[sw_cuda.LAUNCHES, sw_cuda.LAUNCHES_LOCAL],
         fm_launches=[fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK],
+        tp_launches=tp_counts(),
         shapes={f"{L}x{C}": k for (_loc, L, C), k in sw_cuda.SHAPES.items()},
-        reduces=rank_ops.REDUCES,
+        reduces=rank_ops.REDUCES, reduce_bytes=rank_ops.REDUCE_BYTES,
         reduce_s=timers.acc.get("tpReduce", 0.0),
         reduces_on_own_stream=set(rank_ops.REDUCE_STREAMS) <= streams,
         dev_bytes=dev_bytes,
@@ -2399,7 +2702,7 @@ def rank13_capacity(world):
     dev = torch.cuda.memory_allocated() - before
     t2 = time.perf_counter()
     boundary = idx.tp.nblk_loc * DEV_OCC_BLOCK  # rank 1's first row
-    rank_ops.REDUCES = 0
+    rank_ops.REDUCES = rank_ops.REDUCE_BYTES = 0
     zero_fm_counts()
     _wins, lanes = poly_a_checks(idx, n, np.random.default_rng(SEED + 13),
                                  N_ROWS_13, split=(boundary, 1 << 31))
@@ -2412,7 +2715,9 @@ def rank13_capacity(world):
     return dict(build_s=t1 - t0, shard_s=t2 - t1, check_s=t3 - t2,
                 dev_bytes=dev, hbm=hbm, rows=rows, boundary=boundary,
                 lanes=lanes, reduces=rank_ops.REDUCES,
-                fm_launches=[fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK])
+                reduce_bytes=rank_ops.REDUCE_BYTES,
+                fm_launches=[fm_cuda.LAUNCHES_SEARCH, fm_cuda.LAUNCHES_WALK],
+                tp_launches=tp_counts())
 
 
 def rank13_main(spec_path, rank):
@@ -2490,9 +2795,10 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
     equal; on a tp mesh reduces on the aligner's stream and the shard's
     bytes those tp_hbm_per_device gives; the kernel of the mode launched
     (at the phase's shapes where the work is replicated, as it is at one
-    rank and on a model axis), the other not; the FM kernels launched on
-    a data mesh (a whole index) and never on a tp mesh (a sharded index
-    takes the plain FM ops). Logs the rank's numbers."""
+    rank and on a model axis), the other not; on a data mesh (a whole
+    index) K3a and K3b launched and no tp kernel, on a tp mesh every tp
+    kernel (TP_TAGS) launched and neither whole-index one. Logs the rank's
+    numbers, the bytes a reduce among them."""
     tag = rep["tag"]
     got = sam_records(rep["sam"])
     if got != want_recs:
@@ -2510,8 +2816,10 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
         f"reads, dataGather {rep['gather_s']:.3f} s); records equal the "
         "phase's; "
         f"{'K2' if local else 'K1'} launches {mine}, K3a and K3b "
-        f"{rep['fm_launches']}; REDUCES "
-        f"{rep['reduces']}, tpReduce {rep['reduce_s']:.3f} s; index "
+        f"{rep['fm_launches']}, {'/'.join(TP_TAGS)} {rep['tp_launches']}; "
+        f"REDUCES {rep['reduces']} of "
+        f"{rep['reduce_bytes'] / max(rep['reduces'], 1):.1f} bytes on "
+        f"average, tpReduce {rep['reduce_s']:.3f} s; index "
         f"{rep['idx_bytes']} bytes on the card (allocated "
         f"{rep['dev_bytes']})"
         + (f"; tp_hbm_per_device {rep['hbm']}" if rep["hbm"] else ""))
@@ -2519,10 +2827,13 @@ def check_mesh_run(part, rep, rank, want_recs, want_shapes, local,
         log(f"[13]   {line}")
     if mine <= 0 or other != 0:
         raise AssertionError(f"[13] {tag}: launches {rep['launches']}")
-    if (min(rep["fm_launches"]) <= 0 if rep["hbm"] is None
-            else any(rep["fm_launches"])):
+    ran, idle = ((rep["fm_launches"], rep["tp_launches"])
+                 if rep["hbm"] is None else
+                 (rep["tp_launches"], rep["fm_launches"]))
+    if min(ran) <= 0 or any(idle):
         raise AssertionError(f"[13] {tag} ({'tp' if rep['hbm'] else 'data'}"
-                             f" mesh): K3a and K3b {rep['fm_launches']}")
+                             f" mesh): K3a and K3b {rep['fm_launches']}, "
+                             f"{'/'.join(TP_TAGS)} {rep['tp_launches']}")
     if replicated and shapes != want_shapes:
         raise AssertionError(f"[13] {tag}: launches by (L, C) {shapes} "
                              f"against the phase's {want_shapes}")
@@ -2588,8 +2899,9 @@ def run_mesh(idx, sets, pairs, base, wd):
                     part, rep["runs"][i], rank, recs, shapes, run["local"],
                     (world == 1 or run["mesh"] == "tp")
                     and not run.get("head")))
-                FM_TOTAL.update(dict(zip(("K3a", "K3b"),
-                                         rep["runs"][i]["fm_launches"])))
+                FM_TOTAL.update(dict(zip(
+                    FM_TAGS, rep["runs"][i]["fm_launches"]
+                    + rep["runs"][i]["tp_launches"])))
             paths[f"mesh {run['tag']}"] = ("K2" if run["local"] else "K1",
                                            dict(total))
         log(f"[13] ({part}) {world} rank(s), {backend} on cuda:0: "
@@ -2603,10 +2915,14 @@ def run_mesh(idx, sets, pairs, base, wd):
         c = rep["capacity"]
         # the shard's arrays, within the allocator's 2 MiB rounding each
         if abs(c["dev_bytes"] - hbm["tp_sharded"]) > 5 * (2 << 20) \
-                or c["reduces"] <= 0 or any(c["fm_launches"]):
+                or c["reduces"] <= 0 or any(c["fm_launches"]) \
+                or min(c["tp_launches"]) <= 0:
             raise AssertionError(f"[13] (c) rank {rank}: {c['dev_bytes']} "
                                  f"bytes against {hbm}, {c['reduces']} "
-                                 f"reduces, FM kernels {c['fm_launches']}")
+                                 f"reduces, K3a and K3b {c['fm_launches']}, "
+                                 f"{'/'.join(TP_TAGS)} {c['tp_launches']}")
+        FM_TOTAL.update(dict(zip(FM_TAGS, c["fm_launches"]
+                                 + c["tp_launches"])))
         log(f"[13] (c) A^n, n = {POLY_A_N}, sharded over 2 gloo ranks: rank "
             f"{rank} holds {c['rows'][0]} block records and {c['rows'][1]} "
             f"SA rows, {c['dev_bytes'] / 1e9:.3f} GB on the card against "
@@ -2617,9 +2933,13 @@ def run_mesh(idx, sets, pairs, base, wd):
         log(f"[13] (c) rank {rank}: equal to the closed form at rows from "
             f"0, from the shard boundary (row {c['boundary']}) and from "
             "2^31: " + ", ".join(f"{k} {v}" for k, v in c["lanes"].items())
-            + f" lanes; {c['reduces']} reduces in {c['check_s']:.1f} s, "
-            "through the plain FM ops (K3a and K3b launched "
-            f"{c['fm_launches']} times)")
+            + f" lanes; {c['reduces']} reduces of "
+            f"{c['reduce_bytes'] / max(c['reduces'], 1):.1f} bytes on "
+            f"average in {c['check_s']:.1f} s; the search and the walk "
+            f"through the tp kernels ({'/'.join(TP_TAGS)} "
+            f"{c['tp_launches']} launches; K3a "
+            f"and K3b {c['fm_launches']}), the other ops through the "
+            "record reduce")
     log(f"[13] (c) in {time.perf_counter() - t0:.1f} s (processes' start "
         "included)")
     return paths
@@ -2824,14 +3144,19 @@ def main():
             line += (f", {blocks * wpb} warps an SM in blocks of {wpb}"
                      + (" (L=1024, C=1057)" if body else ""))
         log(line)
+    fm_tags = {"fm_search_kernel": "K3a", "fm_walk_kernel": "K3b",
+               "fm_tp_search_step_kernel": "K3a-tp",
+               "fm_tp_walk_step_kernel": "K3b-tp",
+               "fm_tp_sa_kernel": "K3b-tp-sa",
+               "fm_tp_finish_kernel": "K3b-tp-finish"}
     for blk in report.split("Compiling entry function")[1:]:
-        fm = re.search(r"(fm_search_kernel|fm_walk_kernel)(I[al]E)?", blk)
+        fm = re.search(r"(%s)(I[al]E)?" % "|".join(fm_tags), blk)
         nums = re.search(r"(\d+) bytes spill stores.*?Used (\d+) registers",
                          blk, re.S)
         if fm and nums:
             seeds = {"Ia": "int8 seeds", "Il": "int64 seeds"}.get(
                 (fm.group(2) or "")[:2], "")
-            log(f"[2]   {'K3a' if 'search' in fm.group(1) else 'K3b'} "
+            log(f"[2]   {fm_tags[fm.group(1)]} "
                 f"{fm.group(1)} {seeds}: {nums.group(2)} registers, "
                 f"{nums.group(1)} bytes spilled")
     if "--sass" in sys.argv[1:]:
@@ -2854,7 +3179,7 @@ def main():
             e["launches_by_path"][path] = n
             e["launches"] += n
 
-    fm_seen, fm_paths = collections.Counter(), {"K3a": {}, "K3b": {}}
+    fm_seen, fm_paths = collections.Counter(), {tag: {} for tag in FM_TAGS}
 
     def count_fm(path):
         """The FM kernels' launches since the last call (FM_TOTAL), as
@@ -2909,7 +3234,7 @@ def main():
         for path, (tag, shapes) in run_mesh(idx, sets, pdata[0][1::2], base,
                                             wd).items():
             count(tag, path, shapes)
-        count_fm("mesh (data meshes; tp meshes take the plain FM ops)")
+        count_fm("mesh")
         count("K1", "deep repeats", run_deep(wd))
         count_fm("deep repeats")
         perf = run_perf_scripts(wd)

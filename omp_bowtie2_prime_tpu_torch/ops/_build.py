@@ -124,5 +124,29 @@ def get_lib(csrc: str = CSRC) -> ctypes.CDLL:
                 lib.fm_walk_launch.restype = I
                 lib.fm_walk_launch.argtypes = (
                     [P, P, I, P, LL, P, P, LL, LL, I, P, P])
+            if hasattr(lib, "fm_tp_search_step_launch"):
+                # the row-sharded index's steps; a shard is (rows, rows
+                # held, rows owned, rank, size). Search: seeds, seed
+                # bytes, valid, (B, L), shard, fchr, ftab, nftab, zoff,
+                # nrows, ftab_k, sub_ftab, step, nsteps, top, bot, flags,
+                # red_in, red_out, stream
+                lib.fm_tp_search_step_launch.restype = I
+                lib.fm_tp_search_step_launch.argtypes = (
+                    [P, I, P, I, I, P, LL, LL, I, I, P, P, LL, LL, LL, I, I,
+                     I, I, P, P, P, P, P, P])
+                # rows, valid, R, shard, fchr, zoff, step, row, steps,
+                # rnk, done, red_in, red_out, stream
+                lib.fm_tp_walk_step_launch.restype = I
+                lib.fm_tp_walk_step_launch.argtypes = (
+                    [P, P, I, P, LL, LL, I, I, P, LL, I, P, P, P, P, P, P,
+                     P])
+                # valid, R, the SA sample's shard, fchr, zoff, row, steps,
+                # rnk, done, red_in, sa_out, stream
+                lib.fm_tp_sa_launch.restype = I
+                lib.fm_tp_sa_launch.argtypes = (
+                    [P, I, P, LL, LL, I, I, P, LL, P, P, P, P, P, P, P])
+                # valid, R, steps, done, sa, out, stream
+                lib.fm_tp_finish_launch.restype = I
+                lib.fm_tp_finish_launch.argtypes = [P, I, P, P, P, P, P]
             _libs[csrc] = lib
         return _libs[csrc]

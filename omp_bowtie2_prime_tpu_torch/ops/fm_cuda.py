@@ -1,5 +1,6 @@
 """Wrappers of the hand-written Hopper FM kernels (csrc/fm_search.cu): the
-exact backward search over seed lanes (K3a) and the SA walk (K3b).
+exact backward search over seed lanes (K3a) and the SA walk (K3b) on a
+whole index, and their steps on a row-sharded one (K3a-tp, K3b-tp).
 
 ``search_seeds`` returns what ops/seed_search.search_seeds_plain returns,
 ``resolve_rows`` what ops/walk.resolve_rows_plain returns, bit for bit.
@@ -7,17 +8,26 @@ On CUDA tensors each launches its kernel on the current stream (or
 raises); on CPU tensors it runs the plain version. Neither reads a
 device value on the host, so the round's search + resolve
 (seed_search.search_resolve_seeds) makes no host sync on the card.
-``LAUNCHES_SEARCH`` and ``LAUNCHES_WALK`` count the launches, ``STREAMS``
-both by the CUDA stream they went to; the counts are kept under a lock,
-as two align workers launch at once (-p 2).
 
-The kernels take a whole index only. A row-sharded index (``idx.tp``,
-parallel/tp_index.py) gathers each record through an ``all_reduce`` over
-its model group (ops/rank._owner_gather), one a step, which cannot sit
-inside one launch: seed_search.search_seeds and walk.resolve_rows route
-it to the plain versions on any device, by its configuration, and these
-wrappers refuse it. A per-step kernel for the owner gather is ROADMAP's
-next K3 item.
+A row-sharded index (``idx.tp``, parallel/tp_index.py) needs a reduce
+over its model group between two LF steps, which no launch can hold:
+``tp_search_seeds`` and ``tp_resolve_rows`` run the step loops
+(seed_search.tp_search_loop, walk.tp_walk_loop) with a kernel launch a
+step on CUDA tensors (``fm_tp_search_step_kernel``; for the walk
+``fm_tp_walk_step_kernel``, then ``fm_tp_sa_kernel`` and
+``fm_tp_finish_kernel``), each launch and each reduce on the current
+stream (the aligner's), so an NCCL reduce follows its kernel with no
+host sync; on CPU tensors the plain steps. Each launch writes the counts
+of the rows this rank owns, and the reduce sums 16 B a lane where the
+JAX package's route (the plain versions on a sharded index) sums 512 B
+records. They also take a list of in-process shards
+(parallel/tp_index.shard_views), whose reduce is a sum.
+
+``LAUNCHES_SEARCH``, ``LAUNCHES_WALK``, ``LAUNCHES_TP_SEARCH``,
+``LAUNCHES_TP_WALK`` (fm_tp_walk_step_kernel's), ``LAUNCHES_TP_SA`` and
+``LAUNCHES_TP_FINISH`` count each kernel's launches, ``STREAMS`` all of
+them by the CUDA stream they went to; the counts are kept under a lock,
+as two align workers launch at once (-p 2).
 """
 
 from __future__ import annotations
@@ -31,6 +41,10 @@ from . import seed_search, walk
 
 LAUNCHES_SEARCH = 0
 LAUNCHES_WALK = 0
+LAUNCHES_TP_SEARCH = 0
+LAUNCHES_TP_WALK = 0
+LAUNCHES_TP_SA = 0
+LAUNCHES_TP_FINISH = 0
 # launches by cudaStream_t
 STREAMS: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
@@ -54,8 +68,9 @@ def _check_index(idx, dev):
     """The whole index's tables on ``dev``, as the kernels read them: the
     block records int32 (512 B, read in 16-byte loads), the rest int64."""
     if idx.tp is not None:
-        raise ValueError("the FM kernels take a whole index; a row-sharded "
-                         "one (idx.tp) runs the plain versions")
+        raise ValueError("the whole-index FM kernels take a whole index; a "
+                         "row-sharded one (idx.tp) takes tp_search_seeds "
+                         "and tp_resolve_rows")
     for name, dtype in (("blocks", torch.int32), ("ftab", torch.int64),
                         ("sa_sample", torch.int64)):
         t = getattr(idx, name)
@@ -79,13 +94,35 @@ def _launch(name, dev, *args):
     return stream
 
 
-def _count(search: bool, stream) -> None:
-    global LAUNCHES_SEARCH, LAUNCHES_WALK
+def _check_tp_index(idx, dev):
+    """A shard of a row-sharded index on ``dev``, as the tp kernels read
+    it: at most ``nblk_loc`` block records (int32, 16-byte aligned) and
+    ``nsa_loc`` SA-sample rows (int64), as ``idx.tp`` says; the ftab and
+    fchr whole."""
+    tp = idx.tp
+    if tp is None:
+        raise ValueError("the tp kernels take a row-sharded index (idx.tp)")
+    for name, dtype, nloc in (("blocks", torch.int32, tp.nblk_loc),
+                              ("sa_sample", torch.int64, tp.nsa_loc)):
+        t = getattr(idx, name)
+        _check(f"idx.{name}", t, (dtype,), (t.shape[0], 128), dev)
+        if t.shape[0] > nloc:
+            raise ValueError(f"idx.{name}: {t.shape[0]} rows, the shard "
+                             f"owns {nloc}")
+    if idx.blocks.data_ptr() % 16:
+        raise ValueError("idx.blocks: not 16-byte aligned")
+    if not 0 <= tp.rank < tp.size:
+        raise ValueError(f"tp rank {tp.rank} of {tp.size}")
+    _check("idx.ftab", idx.ftab, (torch.int64,), (idx.ftab.shape[0], 128),
+           dev)
+    _check("idx.fchr", idx.fchr, (torch.int64,), (5,), dev)
+
+
+def _count(counter: str, stream) -> None:
+    """One launch more on ``counter`` (a LAUNCHES_* name) and on
+    ``stream``."""
     with _count_lock:
-        if search:
-            LAUNCHES_SEARCH += 1
-        else:
-            LAUNCHES_WALK += 1
+        globals()[counter] += 1
         STREAMS[stream] += 1
 
 
@@ -114,7 +151,7 @@ def search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
         idx.fchr.data_ptr(), idx.ftab.data_ptr(), idx.ftab.shape[0],
         idx.zoff, idx.nrows, idx.ftab_k, int(bool(sub_ftab)), top.data_ptr(),
         bot.data_ptr())
-    _count(True, stream)
+    _count("LAUNCHES_SEARCH", stream)
     return top, bot
 
 
@@ -144,6 +181,129 @@ def resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
         idx.blocks.data_ptr(), idx.blocks.shape[0], idx.fchr.data_ptr(),
         idx.sa_sample.data_ptr(), idx.sa_sample.shape[0], idx.zoff,
         idx.srate, out.data_ptr())
-    _count(False, stream)
+    _count("LAUNCHES_WALK", stream)
     walk.count_steps(idx.srate)
     return out
+
+
+def _shards(idx):
+    """The shards of a tp call: this rank's index, or in-process shards."""
+    shards = list(idx) if isinstance(idx, (list, tuple)) else [idx]
+    if any(sh.tp is None for sh in shards):
+        raise ValueError("the tp step loops take a row-sharded index")
+    return shards
+
+
+def _shard_args(t, nloc, tp):
+    return (t.data_ptr(), t.shape[0], nloc, tp.rank, tp.size)
+
+
+def _tp_search_step(idx, seeds, valid, sub_ftab, i, nsteps, st):
+    """Step ``i`` of seed_search.tp_search_loop: one launch of
+    fm_tp_search_step_kernel on this shard (tp_search_step_plain's
+    work)."""
+    B, L = seeds.shape
+    if B == 0:
+        return
+    stream = _launch(
+        "fm_tp_search_step_launch", seeds.device, seeds.data_ptr(),
+        SEED_DTYPES[seeds.dtype], valid.data_ptr(), B, L,
+        *_shard_args(idx.blocks, idx.tp.nblk_loc, idx.tp),
+        idx.fchr.data_ptr(), idx.ftab.data_ptr(), idx.ftab.shape[0],
+        idx.zoff, idx.nrows, idx.ftab_k, int(bool(sub_ftab)), i, nsteps,
+        st["top"].data_ptr(), st["bot"].data_ptr(), st["flags"].data_ptr(),
+        st["red"][(i - 1) % 2].data_ptr(), st["red"][i % 2].data_ptr())
+    _count("LAUNCHES_TP_SEARCH", stream)
+
+
+def tp_search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
+                    sub_ftab: bool = False, on_step=None):
+    """seeds int8 or int64 [B, L], valid bool [B] -> (top, bot) int64 [B]
+    on a row-sharded index (this rank's ``idx``, or a list of in-process
+    shards): what search_seeds_plain gives on the whole index, through
+    seed_search.tp_search_loop, a kernel launch a step on CUDA tensors
+    (``LAUNCHES_TP_SEARCH``), the plain steps on CPU ones.
+    ``on_step(i, parts)`` sees each step's partials before their
+    reduce."""
+    shards = _shards(idx)
+    if seeds.dim() != 2:
+        raise ValueError(f"seeds: shape {tuple(seeds.shape)}, expected [B, L]")
+    B, L = seeds.shape
+    dev = seeds.device
+    _check("seeds", seeds, tuple(SEED_DTYPES), (B, L), dev)
+    _check("valid", valid, (torch.bool,), (B,), dev)
+    if dev.type == "cpu":
+        return seed_search.tp_search_seeds_plain(shards, seeds, valid,
+                                                 sub_ftab, on_step)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for sh in shards:
+        _check_tp_index(sh, dev)
+    return seed_search.tp_search_loop(shards, seeds, valid, sub_ftab,
+                                      _tp_search_step, on_step)
+
+
+def _tp_walk_step(idx, rows, valid, s, srate, st):
+    """Step ``s`` of walk.tp_walk_loop: a launch of fm_tp_walk_step_kernel
+    (s < srate) or of fm_tp_sa_kernel (s == srate) on this shard."""
+    R = rows.shape[0]
+    if R == 0:
+        return
+    state = (st["row"].data_ptr(), st["steps"].data_ptr(),
+             st["rnk"].data_ptr(), st["done"].data_ptr(),
+             st["red"][(s - 1) % 2].data_ptr())
+    if s < srate:
+        stream = _launch(
+            "fm_tp_walk_step_launch", rows.device, rows.data_ptr(),
+            valid.data_ptr(), R,
+            *_shard_args(idx.blocks, idx.tp.nblk_loc, idx.tp),
+            idx.fchr.data_ptr(), idx.zoff, s, *state,
+            st["red"][s % 2].data_ptr())
+        _count("LAUNCHES_TP_WALK", stream)
+    else:
+        stream = _launch(
+            "fm_tp_sa_launch", rows.device, valid.data_ptr(), R,
+            *_shard_args(idx.sa_sample, idx.tp.nsa_loc, idx.tp),
+            idx.fchr.data_ptr(), idx.zoff, *state, st["sa"].data_ptr())
+        _count("LAUNCHES_TP_SA", stream)
+
+
+def _tp_walk_finish(idx, valid, st):
+    R = valid.shape[0]
+    if R == 0:
+        return
+    stream = _launch(
+        "fm_tp_finish_launch", valid.device, valid.data_ptr(), R,
+        st["steps"].data_ptr(), st["done"].data_ptr(), st["sa"].data_ptr(),
+        st["out"].data_ptr())
+    _count("LAUNCHES_TP_FINISH", stream)
+
+
+def tp_resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
+                    nlive=None, on_step=None) -> torch.Tensor:
+    """rows int64 [R], valid bool [R] -> joined-text offsets int64 [R] on a
+    row-sharded index (this rank's ``idx``, or a list of in-process
+    shards): what resolve_rows_plain gives on the whole index, through
+    walk.tp_walk_loop tile by tile up to ``nlive`` (walk.by_tile, as the
+    plain version tiles), srate + 2 kernel launches a tile on CUDA
+    tensors (``LAUNCHES_TP_WALK``: srate, ``LAUNCHES_TP_SA``: one,
+    ``LAUNCHES_TP_FINISH``: one), the plain steps on CPU ones.
+    ``on_step(s, parts)`` sees each step's partials before their
+    reduce."""
+    shards = _shards(idx)
+    if rows.dim() != 1:
+        raise ValueError(f"rows: shape {tuple(rows.shape)}, expected [R]")
+    R = rows.shape[0]
+    dev = rows.device
+    _check("rows", rows, (torch.int64,), (R,), dev)
+    _check("valid", valid, (torch.bool,), (R,), dev)
+    if dev.type == "cpu":
+        return walk.tp_resolve_rows_plain(shards, rows, valid, nlive,
+                                          on_step)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for sh in shards:
+        _check_tp_index(sh, dev)
+    return walk.by_tile(lambda r, v: walk.tp_walk_loop(
+        shards, r, v, _tp_walk_step, _tp_walk_finish, on_step),
+        rows, valid, nlive)

@@ -33,29 +33,35 @@ def search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
     (top, bot) int64 [B]; empty lanes have top == bot == 0. A whole index
     takes the hand-written search kernel (ops/fm_cuda.py: the kernel on
     CUDA tensors, ``search_seeds_plain`` on CPU ones), a row-sharded one
-    (``idx.tp``) the plain version on any device: its reduce a step cannot
-    run inside a kernel."""
-    if idx.tp is not None:
-        return search_seeds_plain(idx, seeds, valid, sub_ftab)
+    (``idx.tp``) the step loop ``tp_search_loop`` (fm_cuda.tp_search_seeds:
+    a kernel launch a step on CUDA tensors, ``tp_search_step_plain`` on
+    CPU ones, a reduce of the owners' counts between steps)."""
     from . import fm_cuda
 
+    if idx.tp is not None:
+        return fm_cuda.tp_search_seeds(idx, seeds, valid, sub_ftab)
     return fm_cuda.search_seeds(idx, seeds, valid, sub_ftab)
 
 
-def search_seeds_plain(idx, seeds: torch.Tensor, valid: torch.Tensor,
-                       sub_ftab: bool = False, on_step=None):
-    """``search_seeds`` in plain torch: one ``rank.lf_range`` (a few dozen
-    small launches) a step. ``on_step(upd, top, bot)``, if given, sees
-    each step's updated lanes and the range they update (the kernel's
-    reads, for its bound)."""
-    seeds = seeds.to(torch.int64)
+def search_geometry(L: int, ftab_k: int, sub_ftab: bool):
+    """(LF steps of a search of L-mers, ftab_hi: the seed positions below
+    it take a step, the rest are the ftab jump's)."""
+    if L < ftab_k:
+        return L, L
+    if sub_ftab:  # left-aligned short lanes step over their own bases
+        return max(L - ftab_k, ftab_k - 1), L - ftab_k
+    return L - ftab_k, L - ftab_k
+
+
+def _search_init(idx, seeds, valid, sub_ftab):
+    """The search's start from int64 seeds: (top, bot, alive, short),
+    the ftab jump (or the full range for short lanes) on alive lanes."""
     B, L = seeds.shape
     k = idx.ftab_k
     dev = seeds.device
     alive = valid & ~(seeds == 4).any(dim=-1)
     zero = torch.zeros(B, dtype=torch.int64, device=dev)
     nrows = torch.full_like(zero, idx.nrows)
-
     if L >= k:
         ft, fb = rank.ftab_lookup(idx, pack_kmer(seeds[:, L - k :]))
         if sub_ftab:
@@ -63,32 +69,134 @@ def search_seeds_plain(idx, seeds: torch.Tensor, valid: torch.Tensor,
             short = seeds[:, L - 1] < 0
             ft = torch.where(short & alive, zero, ft)
             fb = torch.where(short & alive, nrows, fb)
-            nsteps = max(L - k, min(k, L) - 1)
         else:
             short = torch.zeros(B, dtype=torch.bool, device=dev)
-            nsteps = L - k
         top = torch.where(alive, ft, zero)
         bot = torch.where(alive, fb, zero)
-        ftab_hi = L - k
     else:
         short = torch.ones(B, dtype=torch.bool, device=dev)
         top = zero
         bot = torch.where(alive, nrows, zero)
-        nsteps = L
-        ftab_hi = L
+    return top, bot, alive, short
 
+
+def _search_upd(c, top, bot, pos, ftab_hi, short):
+    """(live, upd) of a step at seed position pos: the lanes whose range
+    is not empty, and those of them the step's base c moves."""
+    live = bot > top
+    return live, live & (c >= 0) & ((pos < ftab_hi) | short)
+
+
+def search_seeds_plain(idx, seeds: torch.Tensor, valid: torch.Tensor,
+                       sub_ftab: bool = False, on_step=None):
+    """``search_seeds`` in plain torch: one ``rank.lf_range`` (a few dozen
+    small launches) a step; on a row-sharded index the JAX package's
+    route, a reduce of the block records a step (rank._owner_gather).
+    ``on_step(upd, top, bot)``, if given, sees each step's updated lanes
+    and the range they update (the kernel's reads, for its bound)."""
+    seeds = seeds.to(torch.int64)
+    L = seeds.shape[1]
+    nsteps, ftab_hi = search_geometry(L, idx.ftab_k, sub_ftab)
+    top, bot, alive, short = _search_init(idx, seeds, valid, sub_ftab)
     for i in range(nsteps):
         pos = nsteps - 1 - i  # right to left over the remaining chars
         c = seeds[:, pos]
-        live = bot > top
-        upd = live & (c >= 0) & ((pos < ftab_hi) | short)
+        live, upd = _search_upd(c, top, bot, pos, ftab_hi, short)
         if on_step is not None:
             on_step(upd, top, bot)
         ntop, nbot = rank.lf_range(idx, c, top, bot)
         bot = torch.where(upd, nbot, torch.where(live, bot, top))
         top = torch.where(upd, ntop, top)
     bot = torch.maximum(top, bot)
+    zero = torch.zeros_like(top)
     return torch.where(alive, top, zero), torch.where(alive, bot, zero)
+
+
+def tp_search_state(B: int, device):
+    """A rank's state of ``tp_search_loop``: the range (top, bot), the
+    lane flags (1 alive, 2 short) and two [B, 2] buffers of partials, a
+    step's in one while the next step reads the other."""
+    return dict(top=torch.empty(B, dtype=torch.int64, device=device),
+                bot=torch.empty(B, dtype=torch.int64, device=device),
+                flags=torch.empty(B, dtype=torch.uint8, device=device),
+                red=[torch.empty((B, 2), dtype=torch.int64, device=device)
+                     for _ in range(2)])
+
+
+def tp_search_step_plain(idx, seeds, valid, sub_ftab, i, nsteps, st):
+    """Step ``i`` of ``tp_search_loop`` on this rank's shard, in plain
+    torch (what the kernel fm_tp_search_step_kernel does): step 0 takes
+    the ftab jump; step i > 0 adds fchr[c] and the zoff rule to step i -
+    1's reduced counts (st["red"][(i - 1) % 2]) and moves the range where
+    that step updates; step i < nsteps then writes this rank's
+    ``owned_lf_partial`` of the range's two ends where step i updates
+    (0 elsewhere) into st["red"][i % 2]; step nsteps writes the result."""
+    seeds = seeds.to(torch.int64)
+    L = seeds.shape[1]
+    _, ftab_hi = search_geometry(L, idx.ftab_k, sub_ftab)
+    if i == 0:
+        top, bot, alive, short = _search_init(idx, seeds, valid, sub_ftab)
+    else:
+        top, bot = st["top"], st["bot"]
+        alive, short = (st["flags"] & 1).bool(), (st["flags"] & 2).bool()
+        pos = nsteps - i
+        c = seeds[:, pos]
+        live, upd = _search_upd(c, top, bot, pos, ftab_hi, short)
+        red = st["red"][(i - 1) % 2]
+        f = rank._fchr_of(idx, c)
+        ntop = f + red[:, 0] - rank._zoff_rule(c, top, idx.zoff)
+        nbot = f + red[:, 1] - rank._zoff_rule(c, bot, idx.zoff)
+        bot = torch.where(upd, nbot, torch.where(live, bot, top))
+        top = torch.where(upd, ntop, top)
+    if i < nsteps:
+        pos = nsteps - 1 - i
+        c = seeds[:, pos]
+        _, upd = _search_upd(c, top, bot, pos, ftab_hi, short)
+        cc = torch.cat([c, c])
+        part = rank.owned_lf_partial(idx, cc, torch.cat([top, bot]))
+        part = torch.where(torch.cat([upd, upd]), part, torch.zeros_like(part))
+        st["red"][i % 2].copy_(part.reshape(2, -1).T)
+        st["top"].copy_(top)
+        st["bot"].copy_(bot)
+        st["flags"].copy_(alive.to(torch.uint8) | (short.to(torch.uint8) << 1))
+    else:
+        zero = torch.zeros_like(top)
+        st["top"].copy_(torch.where(alive, top, zero))
+        st["bot"].copy_(torch.where(alive, torch.maximum(top, bot), zero))
+
+
+def tp_search_loop(shards, seeds, valid, sub_ftab, step, on_step=None):
+    """The search on a row-sharded index: ``step(idx, seeds, valid,
+    sub_ftab, i, nsteps, state)`` (``tp_search_step_plain`` or a kernel
+    launch) for i = 0 .. nsteps on each shard, and between two steps one
+    ``rank.tp_reduce`` of the step's partials, 16 B a lane (the JAX
+    route reduces two 512 B records). ``shards``: this rank's index, or
+    in-process shards (parallel/tp_index.shard_views). The reduces are as
+    many as the search's LF steps whatever the data, so the ranks stay in
+    lockstep. ``on_step(i, parts)`` sees each step's partials before
+    their reduce. Returns (top, bot) of the first shard (the same on
+    all)."""
+    B, L = seeds.shape
+    nsteps, _ = search_geometry(L, shards[0].ftab_k, sub_ftab)
+    states = [tp_search_state(B, seeds.device) for _ in shards]
+    for i in range(nsteps + 1):
+        for idx, st in zip(shards, states):
+            step(idx, seeds, valid, sub_ftab, i, nsteps, st)
+        if i < nsteps:
+            parts = [st["red"][i % 2] for st in states]
+            if on_step is not None:
+                on_step(i, parts)
+            rank.tp_reduce(shards, parts)
+    return states[0]["top"], states[0]["bot"]
+
+
+def tp_search_seeds_plain(shards, seeds, valid, sub_ftab=False,
+                          on_step=None):
+    """``tp_search_loop`` in plain torch on a sharded index (or a list of
+    in-process shards)."""
+    shards = shards if isinstance(shards, (list, tuple)) else [shards]
+    return tp_search_loop(shards, seeds, valid, sub_ftab,
+                          tp_search_step_plain, on_step)
 
 
 def device_seed_grid(lens, ival, active, *, K: int, seed_len: int,

@@ -4,11 +4,13 @@ Counterpart of omp_bowtie2_prime_tpu/ops/walk.py. The index samples by
 text position, so every walk ends within srate-1 LF steps: a fixed
 srate-iteration masked loop over the lanes. ``resolve_rows`` runs the
 hand-written walk kernel on a whole index (ops/fm_cuda.py: the kernel on
-CUDA tensors, ``resolve_rows_plain`` on CPU ones) and the plain version
-on a row-sharded one. ``STEPS`` counts the walk's LF steps: ``srate`` a
-tile of the plain version (a dozen small torch launches each) and
-``srate`` a launch of the kernel, so a run can report what a sparser
-sample (-o, a .bt2 import's srate 16) costs.
+CUDA tensors, ``resolve_rows_plain`` on CPU ones) and the step loop
+``tp_walk_loop`` on a row-sharded one (a kernel launch a step on CUDA
+tensors, the plain steps on CPU ones, a reduce of the owners' answers
+between steps). ``STEPS`` counts the walk's LF steps: ``srate`` a tile of
+the plain version (a dozen small torch launches each) or of the step
+loop, and ``srate`` a launch of the whole-index kernel, so a run can
+report what a sparser sample (-o, a .bt2 import's srate 16) costs.
 """
 
 from __future__ import annotations
@@ -37,35 +39,52 @@ def resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
     caller's compaction puts in the prefix [0, nlive). The plain version
     walks tile by tile up to it; the kernel takes every lane (a dead one
     writes -1 at once) and reads no count, so a caller on the card makes
-    no host sync. A row-sharded index (``idx.tp``) takes the plain
-    version on any device: its reduce a step cannot run inside a
-    kernel."""
-    if idx.tp is not None:
-        return resolve_rows_plain(idx, rows, valid, nlive)
+    no host sync. A row-sharded index (``idx.tp``) walks tile by tile as
+    the plain version does (one host read of nlive), a step a launch,
+    through ``tp_walk_loop``."""
     from . import fm_cuda
 
+    if idx.tp is not None:
+        return fm_cuda.tp_resolve_rows(idx, rows, valid, nlive)
     return fm_cuda.resolve_rows(idx, rows, valid, nlive)
 
 
-def resolve_rows_plain(idx, rows: torch.Tensor, valid: torch.Tensor,
-                       nlive=None, tile: int = 65536) -> torch.Tensor:
-    """``resolve_rows`` in plain torch: srate lockstep walk steps over the
-    lanes, tile by tile up to ``nlive`` (read on the host) when given."""
-    B = rows.shape[0]
-    if nlive is not None and B > tile and B % tile == 0:
-        nlive = int(nlive)
-        out = torch.full((B,), -1, dtype=torch.int64, device=rows.device)
-        t = 0
-        while t * tile < nlive:
-            sl = slice(t * tile, (t + 1) * tile)
-            out[sl] = resolve_rows_plain(idx, rows[sl], valid[sl])
-            t += 1
-        return out
+TILE = 65536  # lanes a tile of the plain walk and of the tp step loop
 
+
+def by_tile(walk_fn, rows, valid, nlive, tile: int | None = None):
+    """``walk_fn(rows, valid)`` tile by tile (``TILE`` lanes unless
+    given) up to ``nlive`` (read on the host) when it is given and the
+    lanes are whole tiles; -1 past it."""
+    tile = tile or TILE
+    B = rows.shape[0]
+    if nlive is None or B <= tile or B % tile:
+        return walk_fn(rows, valid)
+    nlive = int(nlive)
+    out = torch.full((B,), -1, dtype=torch.int64, device=rows.device)
+    t = 0
+    while t * tile < nlive:
+        sl = slice(t * tile, (t + 1) * tile)
+        out[sl] = walk_fn(rows[sl], valid[sl])
+        t += 1
+    return out
+
+
+def resolve_rows_plain(idx, rows: torch.Tensor, valid: torch.Tensor,
+                       nlive=None, tile: int | None = None) -> torch.Tensor:
+    """``resolve_rows`` in plain torch: srate lockstep walk steps over the
+    lanes, tile by tile up to ``nlive`` (read on the host) when given. On
+    a row-sharded index the JAX package's route: a reduce of the block
+    records a step and of the SA sample's rows (rank._owner_gather)."""
+    return by_tile(lambda r, v: _walk_plain(idx, r, v), rows, valid, nlive,
+                   tile)
+
+
+def _walk_plain(idx, rows, valid):
     count_steps(idx.srate)
     row = rows.to(torch.int64)
     steps = torch.zeros_like(row)
-    done = torch.zeros(B, dtype=torch.bool, device=rows.device)
+    done = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
     rnk = torch.zeros_like(row)
     for _ in range(idx.srate):
         marked, r, nrow = rank.walk_step(idx, row)
@@ -77,3 +96,98 @@ def resolve_rows_plain(idx, rows: torch.Tensor, valid: torch.Tensor,
         steps = torch.where(done, steps, steps + 1)
     off = rank.sa_lookup(idx, rnk) + steps
     return torch.where(valid & done, off, torch.full_like(off, -1))
+
+
+def tp_walk_state(R: int, device):
+    """A rank's state of ``tp_walk_loop``: each lane's row, steps taken,
+    marked rank and done flag, two [R, 2] buffers of step partials (a
+    step's in one while the next reads the other), the SA word's partial
+    and the offsets."""
+    i64 = dict(dtype=torch.int64, device=device)
+    return dict(row=torch.empty(R, **i64), steps=torch.empty(R, **i64),
+                rnk=torch.empty(R, **i64),
+                done=torch.empty(R, dtype=torch.bool, device=device),
+                red=[torch.empty((R, 2), **i64) for _ in range(2)],
+                sa=torch.empty(R, **i64), out=torch.empty(R, **i64))
+
+
+def tp_walk_step_plain(idx, rows, valid, s, srate, st):
+    """Step ``s`` of ``tp_walk_loop`` on this rank's shard, in plain torch
+    (what fm_tp_walk_step_kernel does for s < srate and fm_tp_sa_kernel
+    for s == srate): step 0 starts every lane at its row; step s > 0
+    applies step s - 1's reduced (mark, rank, next row) to the lanes that
+    step walked (valid, not done): a marked row ends its lane, the others
+    move on. Step s < srate then writes this rank's
+    ``owned_walk_partial`` of the rows still walking (0 elsewhere) into
+    st["red"][s % 2]; step srate writes its ``owned_sa_partial`` of the
+    ended lanes' ranks (0 elsewhere) into st["sa"]."""
+    if s == 0:
+        st["row"].copy_(rows)
+        st["steps"].zero_()
+        st["rnk"].zero_()
+        st["done"].zero_()
+    else:
+        walking = valid & ~st["done"]
+        marked, r, nxt = rank.walk_unpack(idx, st["row"],
+                                          st["red"][(s - 1) % 2])
+        hit = marked & walking
+        move = walking & ~hit
+        st["rnk"].copy_(torch.where(hit, r, st["rnk"]))
+        st["done"].logical_or_(hit)
+        st["row"].copy_(torch.where(move, nxt, st["row"]))
+        st["steps"].add_(move.to(torch.int64))
+    if s < srate:
+        walking = valid & ~st["done"]
+        part = rank.owned_walk_partial(idx, st["row"])
+        st["red"][s % 2].copy_(torch.where(walking[:, None], part,
+                                           torch.zeros_like(part)))
+    else:
+        ended = valid & st["done"]
+        part = rank.owned_sa_partial(idx, st["rnk"])
+        st["sa"].copy_(torch.where(ended, part, torch.zeros_like(part)))
+
+
+def tp_walk_finish_plain(idx, valid, st):
+    """The offsets from the reduced SA words (fm_tp_finish_kernel): sa +
+    steps where a valid lane ended at a mark within srate steps, else
+    -1."""
+    st["out"].copy_(torch.where(valid & st["done"], st["sa"] + st["steps"],
+                                torch.full_like(st["sa"], -1)))
+
+
+def tp_walk_loop(shards, rows, valid, step, finish, on_step=None):
+    """The walk on a row-sharded index: ``step(idx, rows, valid, s, srate,
+    state)`` for s = 0 .. srate and ``finish(idx, valid, state)`` on each
+    shard (``tp_walk_step_plain`` / ``tp_walk_finish_plain`` or kernel
+    launches), and after each step one ``rank.tp_reduce`` of its
+    partials: 16 B a walking row, 8 B an SA word (the JAX route reduces a
+    512 B record a row, a 1 KB row of the SA sample a lane). srate + 1
+    reduces whatever the data, so the ranks stay in lockstep.
+    ``shards``: this rank's index or in-process shards
+    (parallel/tp_index.shard_views); ``on_step(s, parts)`` sees each
+    step's partials before their reduce. Returns the first shard's
+    offsets (the same on all)."""
+    srate = shards[0].srate
+    count_steps(srate)
+    states = [tp_walk_state(rows.shape[0], rows.device) for _ in shards]
+    for s in range(srate + 1):
+        for idx, st in zip(shards, states):
+            step(idx, rows, valid, s, srate, st)
+        parts = [st["red"][s % 2] if s < srate else st["sa"]
+                 for st in states]
+        if on_step is not None:
+            on_step(s, parts)
+        rank.tp_reduce(shards, parts)
+    for idx, st in zip(shards, states):
+        finish(idx, valid, st)
+    return states[0]["out"]
+
+
+def tp_resolve_rows_plain(shards, rows, valid, nlive=None, on_step=None):
+    """``tp_walk_loop`` in plain torch, tile by tile up to nlive as
+    ``resolve_rows_plain``, on a sharded index (or a list of in-process
+    shards)."""
+    shards = shards if isinstance(shards, (list, tuple)) else [shards]
+    return by_tile(lambda r, v: tp_walk_loop(
+        shards, r.to(torch.int64), v, tp_walk_step_plain,
+        tp_walk_finish_plain, on_step), rows, valid, nlive)

@@ -4,9 +4,13 @@ Counterpart of omp_bowtie2_prime_tpu/parallel/tp_index.py. The two large
 index arrays (the 1024-row block records and the SA sample) are cut
 row-wise across a mesh axis, so the genome's ceiling becomes the cards'
 combined memory rather than one card's. Queries stay lockstep-replicated
-on the ranks of a model group: each rank/LF/walk step gathers the block
-record on its owner and gives it to every rank with one all_reduce
-(ops/rank.py ``_owner_gather``): compute is replicated, memory divided by
+on the ranks of a model group. Each LF step of the search and the walk
+is counted by the owner of its row's record, where the record lies, and
+one all_reduce over the group sums the owners' answers, 16 B a lane, 8 B
+an SA word (ops/seed_search.tp_search_loop, ops/walk.tp_walk_loop: a
+kernel launch a step on the card, ops/fm_cuda.py); the JAX package sums
+the 512 B record itself, which the record-level ops of ops/rank.py
+(``_owner_gather``) still do. Compute is replicated, memory divided by
 the axis size. Every host decision that leads to a collective (live-lane
 counts, the walk's tiles, the grid's overflow test, the DP's launch cuts)
 is made from replicated values, so the ranks issue the same reduces.
@@ -17,6 +21,8 @@ over 'model'.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -86,6 +92,26 @@ def shard_index(fm_or_idx, mesh, axis: str = "model"):
     return GpuIndex(blocks=blocks, sa_sample=sa, **up, **scal,
                     tp=TpShard(group=group, rank=r, size=d, nblk_loc=nblk,
                                nsa_loc=nsa))
+
+
+def shard_views(idx, d: int) -> list:
+    """The ``d`` in-process shards of a whole GpuIndex, as ``shard_index``
+    cuts it over d ranks: each a GpuIndex whose block records and SA
+    sample are views of its rows of the whole (no copy: the last shards'
+    rows stop at the whole's end, and the step loops read the rest of a
+    slice as its zero padding), the other tables shared, and a TpShard
+    with no group. fm_cuda.tp_search_seeds and tp_resolve_rows take the
+    list and sum the shards' partials in process: the kernels are held to
+    the plain steps at several D without a process group."""
+    if idx.tp is not None:
+        raise ValueError("the index is already sharded")
+    nblk = -(-idx.blocks.shape[0] // d)
+    nsa = -(-idx.sa_sample.shape[0] // d)
+    return [dataclasses.replace(
+        idx, blocks=idx.blocks[r * nblk : (r + 1) * nblk],
+        sa_sample=idx.sa_sample[r * nsa : (r + 1) * nsa],
+        tp=TpShard(group=None, rank=r, size=d, nblk_loc=nblk, nsa_loc=nsa))
+        for r in range(d)]
 
 
 def tp_search_resolve_fn(idx, mesh, range_cap: int, expand: float,

@@ -812,7 +812,8 @@ def test_tp_mesh_of_two_ranks_on_one_card(cuda, tmp_path):
     GPU), shard the index over a model axis of 2 (tests/
     torch_dist_workers.py ``task_tp_cuda``): each rank's results equal
     one device's on the card, its shard is on the card and holds half the
-    block records, and it reduced and launched K1."""
+    block records, and it reduced and launched K1, K3a-tp and K3b-tp
+    (not the whole-index K3a and K3b)."""
     import pickle
 
     import torch_dist_workers as workers
@@ -843,7 +844,8 @@ def test_tp_mesh_of_two_ranks_on_one_card(cuda, tmp_path):
     for got in ranks:
         assert got["results"] == one
         assert got["reduces"] > 0 and got["launches"] > 0
-        assert got["fm_launches"] == 0  # the sharded index runs plain
+        assert got["fm_launches"] == 0  # a sharded index: the tp kernels
+        assert min(got["tp_launches"]) > 0
         assert got["rows"] == -(-nbd // 2)
         assert got["device"] == "cuda:0"
 
@@ -1145,3 +1147,172 @@ def test_fm_kernels_on_records_with_bit_31_set(cuda):
     got = fm_cuda.resolve_rows(idx31, rows, valid)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ------- the row-sharded index's kernels: K3a-tp and K3b-tp (a step each) -------
+
+
+def _tp_held(kind, shards, *args):
+    """The tp step loop (``kind``: "search" or "walk") over in-process
+    shards through the kernels and through the plain steps, both on the
+    card's tensors: every step's partials of every shard, before their
+    reduce, and the outputs bit for bit; the kernels' launches counted.
+    Returns the outputs."""
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search, walk
+
+    kparts, pparts = [], []
+
+    def grab(acc):
+        return lambda i, parts: acc.append([p.clone() for p in parts])
+
+    names = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA",
+             "LAUNCHES_TP_FINISH")
+    n0 = [getattr(fm_cuda, x) for x in names]
+    D = len(shards)
+    if kind == "search":
+        got = fm_cuda.tp_search_seeds(shards, *args, on_step=grab(kparts))
+        want = seed_search.tp_search_seeds_plain(shards, *args,
+                                                 on_step=grab(pparts))
+        n = [(len(kparts) + 1) * D, 0, 0, 0]
+    else:
+        got = (fm_cuda.tp_resolve_rows(shards, *args, on_step=grab(kparts)),)
+        want = (walk.tp_resolve_rows_plain(shards, *args,
+                                           on_step=grab(pparts)),)
+        # srate walk steps, the SA word and the finish a shard
+        n = [0, (len(kparts) - 1) * D, D, D]
+    torch.cuda.synchronize()
+    assert [getattr(fm_cuda, x) - a for x, a in zip(names, n0)] == n
+    assert len(kparts) == len(pparts) > 0 or kind == "search"
+    for step, (ks, ps) in enumerate(zip(kparts, pparts)):
+        for shard, (k, p) in enumerate(zip(ks, ps)):
+            assert k.dtype == p.dtype and torch.equal(k, p), (step, shard)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int64])
+@pytest.mark.parametrize("L", [22, 10])
+@pytest.mark.parametrize("d", [1, 2])
+def test_tp_kernels_match_plain_steps(cuda, d, L, dtype):
+    """K3a-tp and K3b-tp over D in-process shards (views of the whole)
+    against the plain steps, every step's partials bit for bit: 22-mers
+    (12 LF steps past the 10-mer ftab) and 10-mers (none, or 9 with
+    sub-ftab lanes), N, padding, dead lanes, B not a multiple of a block;
+    the walk of the round's rows at srate 8; and the outputs equal the
+    whole-index kernels'."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
+    text, fm = _fm_index(200_000, 10)
+    whole = GpuIndex.from_host(fm, cuda)
+    shards = shard_views(whole, d)
+    rng = np.random.default_rng(d * 100 + L)
+    B = 30_001
+    for sub_ftab in (False, True):
+        seeds = torch.from_numpy(_fm_seeds(text, rng, B, L,
+                                           0.3 if sub_ftab else 0.0))
+        seeds = seeds.to(dtype).to(cuda)
+        valid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+        valid[1000:1100] = False
+        top, bot = _tp_held("search", shards, seeds, valid, sub_ftab)
+        for g, w in zip((top, bot),
+                        fm_cuda.search_seeds(whole, seeds, valid, sub_ftab)):
+            assert torch.equal(g, w)
+    starts, rows, live, nlive = seed_search.sample_rows(top, bot, 16, 1.0, 0)
+    off = _tp_held("walk", shards, rows, live)[0]
+    assert torch.equal(off, fm_cuda.resolve_rows(whole, rows, live))
+    assert int((off >= 0).sum()) > B // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", ["deep", "edges"])
+@pytest.mark.parametrize("d", [1, 2])
+def test_tp_kernels_at_edge_offsets(cuda, d, offsets):
+    """K3a-tp on 22-mers whose first LF step reads deep in its records or
+    at chip_smoke's FM_EDGE_OFFSETS, K3b-tp walking from rows there, and
+    rows no rank owns (negative, past the padded end: rank 0's zero
+    record) and in the last shard's padding, against the plain steps."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
+    smoke = _chip_smoke()
+    text, fm = _fm_index(200_000, 10, 16)
+    whole = GpuIndex.from_host(fm, cuda)
+    shards = shard_views(whole, d)
+    rng = np.random.default_rng(d * 10 + len(offsets))
+    S = 20_000
+    seeds = smoke.fm_offset_seeds(rng, text, fm, S, 22, offsets)
+    valid = torch.from_numpy(rng.random(S) < 0.95).to(cuda)
+    top, bot = _tp_held("search", shards, seeds, valid, False)
+    assert int((bot > top).sum()) > S // 2
+    rows = smoke.fm_offset_rows(rng, fm.nrows, S, offsets)
+    nbd = whole.blocks.shape[0]
+    pad_end = -(-nbd // d) * d * 1024
+    rows[:8] = torch.tensor([-1, -1024, -1025, -(1 << 40), nbd * 1024 + 3,
+                             pad_end, pad_end + 1023, 1 << 40])
+    off = _tp_held("walk", shards, rows, torch.ones_like(valid))[0]
+    assert int((off >= 0).sum()) > S // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2])
+def test_tp_kernels_on_records_with_bit_31_set(cuda, d):
+    """On records whose occ and mark checkpoints have bit 31 set, K3a-tp
+    and K3b-tp equal the plain steps (which mask the int32 words to
+    uint32), and the search the one on the records without the shift."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
+    text, fm = _fm_index(200_000, 10)
+    idx = GpuIndex.from_host(fm, cuda)
+    shards = shard_views(GpuIndex.from_host(_fm_bit31(fm), cuda), d)
+    assert int(shards[0].blocks[:, 64].max()) < 0
+    rng = np.random.default_rng(31 + d)
+    B = 30_001
+    seeds = torch.from_numpy(_fm_seeds(text, rng, B, 22, 0.3)).to(cuda)
+    valid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+    got = _tp_held("search", shards, seeds, valid, True)
+    for g, w in zip(got, fm_cuda.search_seeds(idx, seeds, valid, True)):
+        assert torch.equal(g, w)
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, B)).to(cuda)
+    _tp_held("walk", shards, rows, valid)
+
+
+@pytest.mark.cuda
+def test_tp_kernels_past_2_31_rows(cuda):
+    """The A^n index just past 2^31 rows cut into 2 shards (views): the
+    walk from 65,536 rows, a third past 2^31 and a third across the
+    shard boundary, gives n - row, the search of A^22 [22, n + 1) and of
+    22-mers with a C nothing, through K3a-tp and K3b-tp, each step equal
+    to the plain steps."""
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
+    chip_smoke = _chip_smoke()
+    n = (1 << 31) + 4096
+    shards = shard_views(GpuIndex.from_host(
+        chip_smoke.homopolymer_index(n, 8, 12), cuda), 2)
+    boundary = shards[0].tp.nblk_loc * 1024
+    rng = np.random.default_rng(7)
+    k = 1 << 14
+    rows = np.concatenate([rng.integers(0, n + 1, k),
+                           rng.integers(boundary - 5000, boundary + 5000, k),
+                           rng.integers(1 << 31, n + 1, 2 * k)])
+    rows[:4] = [n, 0, (1 << 31) - 1, 1 << 31]
+    rows = torch.from_numpy(rows).to(cuda)
+    off = _tp_held("walk", shards, rows, torch.ones_like(rows,
+                                                         dtype=torch.bool))[0]
+    assert torch.equal(off, n - rows)
+    seeds = torch.zeros((4096, 22), dtype=torch.int64, device=cuda)
+    seeds[2048:, 7] = 1
+    top, bot = _tp_held("search", shards, seeds,
+                        torch.ones(4096, dtype=torch.bool, device=cuda),
+                        False)
+    assert (top[:2048] == 22).all() and (bot[:2048] == n + 1).all()
+    assert (top[2048:] == bot[2048:]).all()
+    del shards
+    torch.cuda.empty_cache()

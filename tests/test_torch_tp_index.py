@@ -187,10 +187,11 @@ def test_tp_aligner_equals_jax(runs, mode):
 
 def test_tp_world_of_two_reduces_int32_records(tmp_path):
     """A model=2 gloo world (tests/torch_dist_workers.py ``task_records``):
-    its shards hold int32 records, every record reduce moves int32 rows of
-    128 words (512 B; the SA sample's rows stay int64), and occ_all,
-    walk_step and the search + resolve through the reduces equal one
-    device's; occ_all and walk_step also on the index with bit 31 set in
+    its shards hold int32 records, every record reduce (occ_all,
+    walk_step) moves int32 rows of 128 words (512 B), the search and the
+    walk reduce their owners' counts instead (two int64 words a lane a
+    step, one a lane for the SA word), and occ_all, walk_step and the
+    search + resolve through the reduces equal one device's; occ_all and walk_step also on the index with bit 31 set in
     every A count and marked rank (int32 words that read negative: one
     owner a row keeps the sum exact). Its search is not compared: its LF
     steps leave the rows, where a sharded gather reads zeros and a whole
@@ -231,5 +232,7 @@ def test_tp_world_of_two_reduces_int32_records(tmp_path):
     assert (want["occ"][:, 0] >= 1 << 31).all()
     for got in ranks:
         assert set(got["reduces"]) == {("torch.int32", 128),
-                                       ("torch.int64", 128)}
-        assert got["reduces"]["torch.int32", 128] > L - 8
+                                       ("torch.int64", 2),
+                                       ("torch.int64", 2 * S)}
+        assert got["reduces"]["torch.int32", 128] == 4  # 2 ops, 2 indexes
+        assert got["reduces"]["torch.int64", 2] > L - 8

@@ -1,6 +1,6 @@
 """Ranks of the port's multi-process tests (tests/test_torch_parallel.py,
 test_torch_tp_index.py, test_torch_multihost.py, test_torch_import.py,
-test_torch_paired_mesh.py) and of scripts/torch_multichip_bench.py and
+test_torch_paired_mesh.py, test_torch_fm_tp.py) and of scripts/torch_multichip_bench.py and
 scripts/torch_tp_scale_check.py.
 
     python tests/torch_dist_workers.py TASK RANK WORLD PORT DIR
@@ -239,8 +239,9 @@ def task_blocked(inp, rank, world):
 
 def task_tp_cuda(inp, rank, world):
     """Ranks sharing one GPU through gloo: a model=WORLD mesh on the card,
-    the reads aligned end to end; the reduces, K1's launches and the FM
-    kernels' (none: a sharded index takes the plain FM ops)."""
+    the reads aligned end to end; the reduces, K1's launches, the
+    whole-index FM kernels' (none on a sharded index) and the tp
+    kernels'."""
     from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
     from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
     from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
@@ -251,11 +252,16 @@ def task_tp_cuda(inp, rank, world):
                       mesh=make_tp_mesh(world, device_type="cuda"))
     rank_ops.REDUCES = sw_cuda.LAUNCHES = 0
     fm_cuda.LAUNCHES_SEARCH = fm_cuda.LAUNCHES_WALK = 0
+    fm_cuda.LAUNCHES_TP_SEARCH = fm_cuda.LAUNCHES_TP_WALK = 0
+    fm_cuda.LAUNCHES_TP_SA = fm_cuda.LAUNCHES_TP_FINISH = 0
     res = [res_tuple(r) for r in al.align_batch(_reads(inp["reads"]))]
     return dict(results=res, reduces=rank_ops.REDUCES,
                 launches=sw_cuda.LAUNCHES, rows=al.idx.blocks.shape[0],
                 device=str(al.idx.blocks.device),
-                fm_launches=fm_cuda.LAUNCHES_SEARCH + fm_cuda.LAUNCHES_WALK)
+                fm_launches=fm_cuda.LAUNCHES_SEARCH + fm_cuda.LAUNCHES_WALK,
+                tp_launches=(fm_cuda.LAUNCHES_TP_SEARCH,
+                             fm_cuda.LAUNCHES_TP_WALK, fm_cuda.LAUNCHES_TP_SA,
+                             fm_cuda.LAUNCHES_TP_FINISH))
 
 
 def pair_reads(spec, cls):
@@ -539,9 +545,83 @@ def task_records(inp, rank, world):
     return dict(indexes=out, reduces=dict(reduces))
 
 
+def task_fm_tp(inp, rank, world):
+    """The search and the walk on a row-sharded index through their step
+    loops (tests/test_torch_fm_tp.py): a model=2 mesh, with a data axis
+    of WORLD / 2. One search_resolve_seeds through the step loops and
+    through the JAX package's record route (search_seeds_plain,
+    sample_rows, resolve_rows_plain on the shard), each with its reduces'
+    count and every reduce's dtype and shape (all_reduce wrapped); the
+    walk of rows past the padded end and negative ones through both;
+    then aligners end to end and --local on the reads and the pairs."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from omp_bowtie2_prime_tpu_torch.io.fastq import Read
+    from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+    from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+    from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
+    from omp_bowtie2_prime_tpu_torch.ops import seed_search, walk
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
+        make_tp_mesh, shard_index)
+
+    fm = inp["fm"]
+    seeds, valid, lseed, rows, rvalid = (torch.from_numpy(inp[k]) for k in (
+        "seeds", "valid", "lseed", "rows", "rvalid"))
+    mesh = make_tp_mesh(2, n_data=world // 2, device_type="cpu")
+    idx = shard_index(fm, mesh)
+    shapes = []
+    real = dist.all_reduce
+
+    def spy(t, *a, **k):
+        shapes.append((str(t.dtype), tuple(t.shape)))
+        return real(t, *a, **k)
+
+    def counted(fn):
+        shapes.clear()
+        rank_ops.REDUCES = 0
+        got = [t.numpy() for t in fn()]
+        return got, rank_ops.REDUCES, list(shapes)
+
+    def record_route():
+        top, bot = seed_search.search_seeds_plain(idx, seeds, valid)
+        starts, r, live, nlive = seed_search.sample_rows(top, bot, 16, 2, 0,
+                                                         lseed)
+        return top, bot, starts, walk.resolve_rows_plain(idx, r, live, nlive)
+
+    dist.all_reduce = spy
+    try:
+        out = dict(
+            steps=counted(lambda: seed_search.search_resolve_seeds(
+                idx, seeds, valid, 16, 2, lane_seed=lseed)),
+            records=counted(record_route),
+            walk_steps=counted(lambda: [walk.resolve_rows(idx, rows,
+                                                          rvalid)]),
+            walk_records=counted(lambda: [walk.resolve_rows_plain(
+                idx, rows, rvalid)]),
+            nblk_loc=idx.tp.nblk_loc)
+    finally:
+        dist.all_reduce = real
+    pkg = "omp_bowtie2_prime_tpu_torch"
+    al = TorchAligner(fm, device="cpu", mesh=mesh)
+    sc, opts = local_config(pkg)
+    loc = TorchAligner(fm, sc, opts, device="cpu", share=al)
+    reads = _reads(inp["reads"])
+    pairs = pair_reads(inp["pairs"], Read)
+    for mode, a in (("e2e", al), ("local", loc)):
+        out["reads", mode] = [res_tuple(r) for r in a.align_batch(reads)]
+        out["pairs", mode] = pair_sam(pkg, fm, pairs,
+                                      PairedAligner(a).align_pairs(pairs))
+    out["tpReduce"] = al.timers.calls.get("tpReduce", 0)
+    return out
+
+
 TASKS = dict(data=task_data, tp=task_tp, shard=task_shard,
              blocked=task_blocked, tp_cuda=task_tp_cuda, pairs=task_pairs,
-             bench=task_bench, tp_scale=task_tp_scale, records=task_records)
+             bench=task_bench, tp_scale=task_tp_scale, records=task_records,
+             fm_tp=task_fm_tp)
 
 
 def main():
