@@ -155,10 +155,16 @@ Phases, one line each, stamped with the seconds since the start:
      the owners' counts reduced between launches; the walk's SA word and
      finish, K3b-tp-sa and K3b-tp-finish) on phase 5's index cut into 1,
      2 and 4 in-process shards and on the 3.1 G-row index cut into 2
-     (``FM_TP_CASES``, views of the whole): every step's partials against
-     the plain steps', the outputs against the whole index's kernels,
-     each kernel's launches on shard 0 timed L2-warm and cold against
-     its layout-free bound (``tp_search_bytes``, ``tp_walk_bytes``). Every
+     (``FM_TP_CASES``, views of the whole), and on the 3.1 G rows at D =
+     2 at the aligner's own shapes too (``tp_aligner_shapes``: int8 seeds
+     at the lanes of a round's chunk, ``chunk_lanes``; a walk tile of
+     walk.TILE rows): every step's partials against the plain steps', the
+     outputs against the whole index's kernels, each kernel's launches on
+     shard 0 timed L2-warm (after a spin of the card's that outlasts the
+     host's enqueue) and cold against its layout-free bound
+     (``tp_search_bytes``, ``tp_walk_bytes``), a one-launch kernel's (the
+     walk's SA word and finish) as the median of 20 single launches with
+     the least and the most. Every
      path that aligns on a whole index must launch K3a and K3b (their
      launches are logged beside K1's and K2's); phase 12 (d) runs them
      past 2^31 rows; phase 13's tp meshes (a row-sharded index) must
@@ -1180,14 +1186,23 @@ def tp_walk_bytes(idx, shard, rows, valid):
             "K3b-tp-finish": R * (1 + 8 + 8)}
 
 
+# the card's spin before each L2-warm launch of ``time_launches``, in
+# clock cycles (~0.5 ms): longer than the host takes to enqueue the
+# launch after it (the wrapper's checks and ctypes call), so the events
+# time the launch and not the host
+WARM_SPIN_CYCLES = 1_000_000
+
+
 def time_launches(recs, n, flush=None):
-    """Summed mean ms of each recorded launch (``tp_replay``), each run n
-    times on the state it found (restored, untimed, before every run),
-    the events around the launch alone; with ``flush``, overwritten
-    before every run (L2-cold), else a spin of the card's of ~50 us: the
-    host enqueues the launch while the card is busy, so the events time
-    the launch, not the host's call."""
-    total = 0.0
+    """Each recorded launch (``tp_replay``) run n times on the state it
+    found (restored, untimed, before every run), the events around the
+    launch alone; with ``flush``, overwritten before every run (L2-cold),
+    else after a spin of the card's (``WARM_SPIN_CYCLES``), so that the
+    host has enqueued the launch before the card reaches it. Returns
+    (ms, lo, hi): for one recorded launch the median of its n runs, the
+    least and the most; for several the sum of each one's mean, and of
+    its least and its most."""
+    total = lo = hi = 0.0
     for fn, idx, args, snap, st in recs:
         ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
               for _ in range(n)]
@@ -1200,13 +1215,16 @@ def time_launches(recs, n, flush=None):
             if flush is not None:
                 flush.fill_(i)
             else:
-                torch.cuda._sleep(100_000)
+                torch.cuda._sleep(WARM_SPIN_CYCLES)
             a.record()
             fn(idx, *args, st)
             b.record()
         torch.cuda.synchronize()
-        total += sum(a.elapsed_time(b) for a, b in ev) / n
-    return total
+        ts = [a.elapsed_time(b) for a, b in ev]
+        total += float(np.median(ts)) if len(recs) == 1 else sum(ts) / n
+        lo += min(ts)
+        hi += max(ts)
+    return total, lo, hi
 
 
 def _tp_tag(kind, a):
@@ -1304,13 +1322,16 @@ def tp_hold(kind, label, whole, shards, args, flush, floor):
     label = f"{label}, D = {len(shards)}"
     out = {}
     for tag, (plain_ms, recs) in held.items():
-        ms = time_launches(recs, 20)
-        cold = time_launches(recs, 20, flush)
+        ms, lo, hi = time_launches(recs, 20)
+        cold, clo, chi = time_launches(recs, 20, flush)
         bound_ms = 1e3 * nbytes[tag] / HBM_BYTES_PER_S
+        how = ("the median of 20 single launches" if len(recs) == 1 else
+               "each launch's mean of 20, summed")
         log(f"[16] {tag} {label}: {got[0].shape[0]} lanes, {len(recs)} "
             f"launches on shard 0 (of {shards[0].blocks.shape[0]} records), "
-            f"kernel {ms:.4f} ms warm, {cold:.4f} ms L2-cold (each launch's "
-            f"mean of 20, summed), plain steps on shard 0 {plain_ms:.3f} "
+            f"kernel {ms:.4f} ms warm ({lo:.4f}-{hi:.4f}), {cold:.4f} ms "
+            f"L2-cold ({clo:.4f}-{chi:.4f}; {how}; the range the least and "
+            f"the most), plain steps on shard 0 {plain_ms:.3f} "
             f"ms, bound {bound_ms:.4f} ms (bytes: {nbytes[tag]}, "
             f"layout-free; "
             f"{'' if floor else 'no floor: the records fit the L2; '}"
@@ -1319,11 +1340,44 @@ def tp_hold(kind, label, whole, shards, args, flush, floor):
             "partials and the outputs; tolerance: exact)")
         out[tag] = dict(label=label, lanes=got[0].shape[0],
                         launches_timed=len(recs), ms=ms, ms_cold=cold,
+                        ms_range=[lo, hi], ms_cold_range=[clo, chi],
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by="bytes", bound_is_floor=floor,
                         bound_share=bound_ms / ms,
                         bound_share_cold=bound_ms / cold, max_abs_err=0)
     return out
+
+
+def chunk_lanes(n_reads=8192):
+    """(SB, G): the seed lanes one chunk of a round launches for a batch
+    of n_reads reads of phase 5's lengths (100 and 150 bp in turn) under
+    the aligner's defaults (round 0, both orientations), and the valid
+    lanes of each orientation's half, by the arithmetic of
+    ``TorchAligner._grid_dispatch`` (fw seeds [0, SB / 2), rc the rest)."""
+    from omp_bowtie2_prime_tpu_torch.models.aligner import AlignOpts
+
+    o = AlignOpts()
+    lens = np.resize(np.array([100, 150]), n_reads)
+    ival = np.maximum(1, o.ival.f_vec(lens.astype(np.float64)))
+    eff = np.minimum(lens, o.seed_len)
+    G = int(((lens - eff) // ival.astype(np.int64) + 1).sum())
+    return 1 << max(13, (2 * G - 1).bit_length()), G
+
+
+def tp_aligner_shapes(idx, rng, rows, live):
+    """The tp step loops' cases at the aligner's own shapes on ``idx``:
+    int8 seeds (22-mers read off it, ``lf_seeds``) at the lanes of a
+    round's chunk (``chunk_lanes``: each orientation's first G lanes
+    valid), and the first walk tile of the round's slots ``rows``,
+    ``live`` (walk.TILE rows, as walk.by_tile launches them)."""
+    SB, G = chunk_lanes()
+    seeds = lf_seeds(idx, rng, SB, 22).to(torch.int8)
+    valid = torch.arange(SB, device=seeds.device) % (SB // 2) < G
+    t = walk.TILE
+    return [("search", f"int8 seeds, a round's chunk of {SB} lanes "
+             f"({2 * G} valid)", (seeds, valid, False)),
+            ("walk", f"a walk tile of {t} of the round's slots",
+             (rows[:t].contiguous(), live[:t].contiguous()))]
 
 
 def time_cold_ms(fn, n, flush):
@@ -1457,9 +1511,12 @@ def check_fm(idx_paths, rng):
             walk_bytes(idx, r, live), flush, floor))
         for d in FM_TP_CASES.get(label, ()):
             shards = shard_views(idx, d)
-            for kind, args in (("search", (seeds, valid, sub)),
-                               ("walk", (r, live))):
-                for tag, row in tp_hold(kind, label, idx, shards, args,
+            cases = [(kind, label, args) for kind, args in (
+                ("search", (seeds, valid, sub)), ("walk", (r, live)))]
+            if which == "random" and d == 2:
+                cases += tp_aligner_shapes(idx, rng, r, live)
+            for kind, lab, args in cases:
+                for tag, row in tp_hold(kind, lab, idx, shards, args,
                                         flush, floor).items():
                     rows[tag].append(row)
             del shards

@@ -128,25 +128,24 @@ def get_lib(csrc: str = CSRC) -> ctypes.CDLL:
                 # the row-sharded index's steps; a shard is (rows, rows
                 # held, rows owned, rank, size). Search: seeds, seed
                 # bytes, valid, (B, L), shard, fchr, ftab, nftab, zoff,
-                # nrows, ftab_k, sub_ftab, step, nsteps, top, bot, flags,
-                # red_in, red_out, stream
+                # nrows, ftab_k, sub_ftab, step, nsteps, top, bot, codes,
+                # mask, flags, red_in, red_out, stream
                 lib.fm_tp_search_step_launch.restype = I
                 lib.fm_tp_search_step_launch.argtypes = (
                     [P, I, P, I, I, P, LL, LL, I, I, P, P, LL, LL, LL, I, I,
-                     I, I, P, P, P, P, P, P])
-                # rows, valid, R, shard, fchr, zoff, step, row, steps,
-                # rnk, done, red_in, red_out, stream
+                     I, I] + [P] * 8)
+                # rows, valid, R, shard, fchr, zoff, step, w, st, red_in,
+                # red_out, stream
                 lib.fm_tp_walk_step_launch.restype = I
                 lib.fm_tp_walk_step_launch.argtypes = (
-                    [P, P, I, P, LL, LL, I, I, P, LL, I, P, P, P, P, P, P,
-                     P])
-                # valid, R, the SA sample's shard, fchr, zoff, row, steps,
-                # rnk, done, red_in, sa_out, stream
+                    [P, P, I, P, LL, LL, I, I, P, LL, I] + [P] * 5)
+                # R, the SA sample's shard, fchr, zoff, step, w, st,
+                # red_in, sa_out, stream
                 lib.fm_tp_sa_launch.restype = I
                 lib.fm_tp_sa_launch.argtypes = (
-                    [P, I, P, LL, LL, I, I, P, LL, P, P, P, P, P, P, P])
-                # valid, R, steps, done, sa, out, stream
+                    [I, P, LL, LL, I, I, P, LL, I] + [P] * 5)
+                # R, w, st, sa, out, stream
                 lib.fm_tp_finish_launch.restype = I
-                lib.fm_tp_finish_launch.argtypes = [P, I, P, P, P, P, P]
+                lib.fm_tp_finish_launch.argtypes = [I, P, P, P, P, P]
             _libs[csrc] = lib
         return _libs[csrc]

@@ -37,7 +37,7 @@ import threading
 
 import torch
 
-from . import seed_search, walk
+from . import rank, seed_search, walk
 
 LAUNCHES_SEARCH = 0
 LAUNCHES_WALK = 0
@@ -198,6 +198,24 @@ def _shard_args(t, nloc, tp):
     return (t.data_ptr(), t.shape[0], nloc, tp.rank, tp.size)
 
 
+def _state_ptrs(st, keys):
+    """Pointers to the step state's tensors ``keys``, each checked to be
+    16-byte aligned and padded to a multiple of rank.TP_PAD lanes
+    (rank.tp_buffer), as the tp kernels' bulk copies read them."""
+    ptrs = []
+    for key in keys:
+        t = st[key]
+        n = t.shape[0]
+        need = -(-n // rank.TP_PAD) * rank.TP_PAD * (t.numel() // max(n, 1))
+        have = (t.untyped_storage().nbytes() // t.element_size()
+                - t.storage_offset())
+        if t.data_ptr() % 16 or have < need or not t.is_contiguous():
+            raise ValueError(f"tp state {key}: not a 16-byte aligned, "
+                             f"contiguous buffer of {need} entries")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
 def _tp_search_step(idx, seeds, valid, sub_ftab, i, nsteps, st):
     """Step ``i`` of seed_search.tp_search_loop: one launch of
     fm_tp_search_step_kernel on this shard (tp_search_step_plain's
@@ -205,14 +223,15 @@ def _tp_search_step(idx, seeds, valid, sub_ftab, i, nsteps, st):
     B, L = seeds.shape
     if B == 0:
         return
+    st = dict(st, red_in=st["red"][(i - 1) % 2], red_out=st["red"][i % 2])
     stream = _launch(
         "fm_tp_search_step_launch", seeds.device, seeds.data_ptr(),
         SEED_DTYPES[seeds.dtype], valid.data_ptr(), B, L,
         *_shard_args(idx.blocks, idx.tp.nblk_loc, idx.tp),
         idx.fchr.data_ptr(), idx.ftab.data_ptr(), idx.ftab.shape[0],
         idx.zoff, idx.nrows, idx.ftab_k, int(bool(sub_ftab)), i, nsteps,
-        st["top"].data_ptr(), st["bot"].data_ptr(), st["flags"].data_ptr(),
-        st["red"][(i - 1) % 2].data_ptr(), st["red"][i % 2].data_ptr())
+        *_state_ptrs(st, ("top", "bot", "codes", "mask", "flags", "red_in",
+                          "red_out")))
     _count("LAUNCHES_TP_SEARCH", stream)
 
 
@@ -249,22 +268,21 @@ def _tp_walk_step(idx, rows, valid, s, srate, st):
     R = rows.shape[0]
     if R == 0:
         return
-    state = (st["row"].data_ptr(), st["steps"].data_ptr(),
-             st["rnk"].data_ptr(), st["done"].data_ptr(),
-             st["red"][(s - 1) % 2].data_ptr())
+    st = dict(st, red_in=st["red"][(s - 1) % 2], red_out=st["red"][s % 2])
+    state = _state_ptrs(st, ("w", "st", "red_in"))
     if s < srate:
         stream = _launch(
             "fm_tp_walk_step_launch", rows.device, rows.data_ptr(),
             valid.data_ptr(), R,
             *_shard_args(idx.blocks, idx.tp.nblk_loc, idx.tp),
             idx.fchr.data_ptr(), idx.zoff, s, *state,
-            st["red"][s % 2].data_ptr())
+            *_state_ptrs(st, ("red_out",)))
         _count("LAUNCHES_TP_WALK", stream)
     else:
         stream = _launch(
-            "fm_tp_sa_launch", rows.device, valid.data_ptr(), R,
+            "fm_tp_sa_launch", rows.device, R,
             *_shard_args(idx.sa_sample, idx.tp.nsa_loc, idx.tp),
-            idx.fchr.data_ptr(), idx.zoff, *state, st["sa"].data_ptr())
+            idx.fchr.data_ptr(), idx.zoff, s, *state, st["sa"].data_ptr())
         _count("LAUNCHES_TP_SA", stream)
 
 
@@ -273,9 +291,8 @@ def _tp_walk_finish(idx, valid, st):
     if R == 0:
         return
     stream = _launch(
-        "fm_tp_finish_launch", valid.device, valid.data_ptr(), R,
-        st["steps"].data_ptr(), st["done"].data_ptr(), st["sa"].data_ptr(),
-        st["out"].data_ptr())
+        "fm_tp_finish_launch", valid.device, R, st["w"].data_ptr(),
+        st["st"].data_ptr(), st["sa"].data_ptr(), st["out"].data_ptr())
     _count("LAUNCHES_TP_FINISH", stream)
 
 

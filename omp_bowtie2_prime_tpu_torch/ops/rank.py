@@ -154,6 +154,18 @@ def tp_reduce(shards, parts) -> None:
     _count_reduce(parts[0])
 
 
+TP_PAD = 16  # lanes the step loops' state tensors are padded to
+
+
+def tp_buffer(n: int, dtype, device, *tail) -> torch.Tensor:
+    """An uninitialised tensor of ``n`` lanes (``tail`` the shape of a
+    lane), the first n of a buffer padded to a multiple of TP_PAD lanes:
+    the tp step kernels copy a tile of the step loops' state in bulk
+    copies of whole 16-byte units, which may pass the last lane."""
+    pad = -(-n // TP_PAD) * TP_PAD
+    return torch.empty((pad,) + tuple(tail), dtype=dtype, device=device)[:n]
+
+
 def _owned(tp, nloc: int, i: torch.Tensor):
     """(rows of ``i`` this rank owns, rows no rank owns whose zero-record
     answer this rank gives: local rank 0's)."""

@@ -112,53 +112,106 @@ def search_seeds_plain(idx, seeds: torch.Tensor, valid: torch.Tensor,
     return torch.where(alive, top, zero), torch.where(alive, bot, zero)
 
 
+TP_PACKED_STEPS = 32  # LF steps whose bases the tp search state packs
+# tp search state flags: the lane is alive, short (sub-ftab or below the
+# ftab width), raw (a base past 3 among its steps': each step reads it
+# from the seeds, as every lane does past TP_PACKED_STEPS steps)
+ALIVE, SHORT, RAW = 1, 2, 4
+
+
 def tp_search_state(B: int, device):
-    """A rank's state of ``tp_search_loop``: the range (top, bot), the
-    lane flags (1 alive, 2 short) and two [B, 2] buffers of partials, a
-    step's in one while the next step reads the other."""
-    return dict(top=torch.empty(B, dtype=torch.int64, device=device),
-                bot=torch.empty(B, dtype=torch.int64, device=device),
-                flags=torch.empty(B, dtype=torch.uint8, device=device),
-                red=[torch.empty((B, 2), dtype=torch.int64, device=device)
+    """A rank's state of ``tp_search_loop``, one entry a lane: the range
+    (top, bot); the step bases step 0 packs from the seed (``codes``, 2
+    bits a step: step i's base & 3 at bits 2i; ``mask`` int32, bit i:
+    step i moves a live range, its base >= 0 and its position below the
+    ftab's or the lane short; both 0 past TP_PACKED_STEPS steps); the lane
+    ``flags`` (ALIVE, SHORT, RAW); and two [B, 2] buffers of partials, a
+    step's in one while the next step reads the other. Padded to TP_PAD
+    lanes (``rank.tp_buffer``), as the kernel's bulk copies read them."""
+    i64 = dict(dtype=torch.int64, device=device)
+    return dict(top=rank.tp_buffer(B, **i64), bot=rank.tp_buffer(B, **i64),
+                codes=rank.tp_buffer(B, **i64),
+                mask=rank.tp_buffer(B, torch.int32, device),
+                flags=rank.tp_buffer(B, torch.uint8, device),
+                red=[rank.tp_buffer(B, torch.int64, device, 2)
                      for _ in range(2)])
+
+
+def _search_pack(seeds, nsteps, ftab_hi, short):
+    """(codes, mask, raw) of ``tp_search_state`` from int64 seeds."""
+    B = seeds.shape[0]
+    dev = seeds.device
+    i = torch.arange(nsteps, device=dev, dtype=torch.int64)
+    pos = nsteps - 1 - i
+    c = seeds[:, pos]  # [B, nsteps]: step i's base
+    raw = (c > 3).any(dim=1) if nsteps else torch.zeros(
+        B, dtype=torch.bool, device=dev)
+    if nsteps > TP_PACKED_STEPS:
+        zero = torch.zeros(B, dtype=torch.int64, device=dev)
+        return zero, zero.to(torch.int32), raw
+    moves = (c >= 0) & ((pos < ftab_hi)[None, :] | short[:, None])
+    codes = ((c & 3) << (2 * i)).sum(dim=1)  # disjoint bits: their or
+    mask = (moves.to(torch.int64) << i).sum(dim=1)
+    mask = torch.where(mask >= 1 << 31, mask - (1 << 32), mask)
+    return codes, mask.to(torch.int32), raw
+
+
+def _step_base(st, seeds, i, nsteps, ftab_hi):
+    """(c, moves) of search step i from the packed state: the step's base
+    (from the seeds on a RAW lane, or past TP_PACKED_STEPS steps) and
+    whether it moves a live range."""
+    pos = nsteps - 1 - i
+    short = (st["flags"] & SHORT) != 0
+    if nsteps > TP_PACKED_STEPS:
+        c = seeds[:, pos]
+        return c, (c >= 0) & ((pos < ftab_hi) | short)
+    c = torch.where((st["flags"] & RAW) != 0, seeds[:, pos],
+                    (st["codes"] >> (2 * i)) & 3)
+    return c, ((st["mask"] >> i) & 1) != 0
 
 
 def tp_search_step_plain(idx, seeds, valid, sub_ftab, i, nsteps, st):
     """Step ``i`` of ``tp_search_loop`` on this rank's shard, in plain
     torch (what the kernel fm_tp_search_step_kernel does): step 0 takes
-    the ftab jump; step i > 0 adds fchr[c] and the zoff rule to step i -
-    1's reduced counts (st["red"][(i - 1) % 2]) and moves the range where
-    that step updates; step i < nsteps then writes this rank's
-    ``owned_lf_partial`` of the range's two ends where step i updates
-    (0 elsewhere) into st["red"][i % 2]; step nsteps writes the result."""
+    the ftab jump and packs the lanes' step bases into the state; step i
+    > 0 adds fchr[c] and the zoff rule to step i - 1's reduced counts
+    (st["red"][(i - 1) % 2]) and moves the range where that step
+    updates; step i < nsteps then writes this rank's ``owned_lf_partial``
+    of the range's two ends where step i updates (0 elsewhere) into
+    st["red"][i % 2]; step nsteps writes the result. Only step 0 and RAW
+    lanes read the seeds."""
     seeds = seeds.to(torch.int64)
     L = seeds.shape[1]
     _, ftab_hi = search_geometry(L, idx.ftab_k, sub_ftab)
     if i == 0:
         top, bot, alive, short = _search_init(idx, seeds, valid, sub_ftab)
+        codes, mask, raw = _search_pack(seeds, nsteps, ftab_hi, short)
+        st["codes"].copy_(codes)
+        st["mask"].copy_(mask)
+        st["flags"].copy_(alive.to(torch.uint8) * ALIVE
+                          | short.to(torch.uint8) * SHORT
+                          | raw.to(torch.uint8) * RAW)
     else:
         top, bot = st["top"], st["bot"]
-        alive, short = (st["flags"] & 1).bool(), (st["flags"] & 2).bool()
-        pos = nsteps - i
-        c = seeds[:, pos]
-        live, upd = _search_upd(c, top, bot, pos, ftab_hi, short)
+        c, moves = _step_base(st, seeds, i - 1, nsteps, ftab_hi)
+        live = bot > top
+        upd = live & moves
         red = st["red"][(i - 1) % 2]
         f = rank._fchr_of(idx, c)
         ntop = f + red[:, 0] - rank._zoff_rule(c, top, idx.zoff)
         nbot = f + red[:, 1] - rank._zoff_rule(c, bot, idx.zoff)
         bot = torch.where(upd, nbot, torch.where(live, bot, top))
         top = torch.where(upd, ntop, top)
+    alive = (st["flags"] & ALIVE) != 0
     if i < nsteps:
-        pos = nsteps - 1 - i
-        c = seeds[:, pos]
-        _, upd = _search_upd(c, top, bot, pos, ftab_hi, short)
+        c, moves = _step_base(st, seeds, i, nsteps, ftab_hi)
+        upd = (bot > top) & moves
         cc = torch.cat([c, c])
         part = rank.owned_lf_partial(idx, cc, torch.cat([top, bot]))
         part = torch.where(torch.cat([upd, upd]), part, torch.zeros_like(part))
         st["red"][i % 2].copy_(part.reshape(2, -1).T)
         st["top"].copy_(top)
         st["bot"].copy_(bot)
-        st["flags"].copy_(alive.to(torch.uint8) | (short.to(torch.uint8) << 1))
     else:
         zero = torch.zeros_like(top)
         st["top"].copy_(torch.where(alive, top, zero))

@@ -98,60 +98,90 @@ def _walk_plain(idx, rows, valid):
     return torch.where(valid & done, off, torch.full_like(off, -1))
 
 
+# the tp walk's lane status (``tp_walk_state``'s "st") and, once a lane
+# has ended, where its steps sit in its word beside the marked rank
+WALKING, ENDED, DEAD = 0, 1, 2
+STEPS_SHIFT = 48
+RANK_MASK = (1 << STEPS_SHIFT) - 1
+
+
 def tp_walk_state(R: int, device):
-    """A rank's state of ``tp_walk_loop``: each lane's row, steps taken,
-    marked rank and done flag, two [R, 2] buffers of step partials (a
-    step's in one while the next reads the other), the SA word's partial
-    and the offsets."""
+    """A rank's state of ``tp_walk_loop``, 9 B a lane: ``w`` int64, the
+    lane's row while it walks and, once it has ended at a mark, its
+    marked rank with its steps above bit STEPS_SHIFT (a rank is below
+    2^33, a step count below srate); ``st`` uint8, WALKING, ENDED or DEAD
+    (not valid). A walking lane has taken as many LF steps as the loop
+    has applied, so only an ended lane keeps its count. Then two [R, 2]
+    buffers of step partials (a step's in one while the next reads the
+    other), the SA word's partial and the offsets. ``w``, ``st`` and the
+    partials are padded to TP_PAD lanes (``rank.tp_buffer``), as the
+    kernel's bulk copies read them."""
     i64 = dict(dtype=torch.int64, device=device)
-    return dict(row=torch.empty(R, **i64), steps=torch.empty(R, **i64),
-                rnk=torch.empty(R, **i64),
-                done=torch.empty(R, dtype=torch.bool, device=device),
-                red=[torch.empty((R, 2), **i64) for _ in range(2)],
+    return dict(w=rank.tp_buffer(R, **i64),
+                st=rank.tp_buffer(R, torch.uint8, device),
+                red=[rank.tp_buffer(R, torch.int64, device, 2)
+                     for _ in range(2)],
                 sa=torch.empty(R, **i64), out=torch.empty(R, **i64))
+
+
+def tp_walk_unpack(st):
+    """(row, steps, rnk, done) of a ``tp_walk_state``: the walk's state
+    as ``_walk_plain`` keeps it (row and rank 0 where the layout holds
+    the other), for lanes that are valid; steps of a walking lane are
+    the loop's and are not in the state."""
+    w, status = st["w"], st["st"]
+    done = status == ENDED
+    zero = torch.zeros_like(w)
+    return (torch.where(done, zero, w),
+            torch.where(done, w >> STEPS_SHIFT, zero),
+            torch.where(done, w & RANK_MASK, zero), done)
+
+
+def _walk_apply(idx, st, part, s):
+    """Step s - 1's reduced walk partials applied to the walking lanes of
+    ``st``: a marked row ends its lane with its rank and s - 1 steps, the
+    others move to the row's LF."""
+    walking = st["st"] == WALKING
+    marked, r, nxt = rank.walk_unpack(idx, st["w"], part)
+    hit = marked & walking
+    ended = r | ((s - 1) << STEPS_SHIFT)
+    st["w"].copy_(torch.where(hit, ended, torch.where(walking, nxt,
+                                                      st["w"])))
+    st["st"].copy_(torch.where(hit, torch.full_like(st["st"], ENDED),
+                               st["st"]))
 
 
 def tp_walk_step_plain(idx, rows, valid, s, srate, st):
     """Step ``s`` of ``tp_walk_loop`` on this rank's shard, in plain torch
     (what fm_tp_walk_step_kernel does for s < srate and fm_tp_sa_kernel
-    for s == srate): step 0 starts every lane at its row; step s > 0
-    applies step s - 1's reduced (mark, rank, next row) to the lanes that
-    step walked (valid, not done): a marked row ends its lane, the others
-    move on. Step s < srate then writes this rank's
-    ``owned_walk_partial`` of the rows still walking (0 elsewhere) into
-    st["red"][s % 2]; step srate writes its ``owned_sa_partial`` of the
-    ended lanes' ranks (0 elsewhere) into st["sa"]."""
+    for s == srate): step 0 starts every valid lane walking at its row;
+    step s > 0 applies step s - 1's reduced (mark, rank, next row) to the
+    walking lanes (``_walk_apply``). Step s < srate then writes this
+    rank's ``owned_walk_partial`` of the rows still walking (0 elsewhere)
+    into st["red"][s % 2]; step srate writes its ``owned_sa_partial`` of
+    the ended lanes' ranks (0 elsewhere) into st["sa"]."""
     if s == 0:
-        st["row"].copy_(rows)
-        st["steps"].zero_()
-        st["rnk"].zero_()
-        st["done"].zero_()
+        st["w"].copy_(rows)
+        st["st"].fill_(DEAD).masked_fill_(valid, WALKING)
     else:
-        walking = valid & ~st["done"]
-        marked, r, nxt = rank.walk_unpack(idx, st["row"],
-                                          st["red"][(s - 1) % 2])
-        hit = marked & walking
-        move = walking & ~hit
-        st["rnk"].copy_(torch.where(hit, r, st["rnk"]))
-        st["done"].logical_or_(hit)
-        st["row"].copy_(torch.where(move, nxt, st["row"]))
-        st["steps"].add_(move.to(torch.int64))
+        _walk_apply(idx, st, st["red"][(s - 1) % 2], s)
     if s < srate:
-        walking = valid & ~st["done"]
-        part = rank.owned_walk_partial(idx, st["row"])
+        walking = st["st"] == WALKING
+        part = rank.owned_walk_partial(idx, st["w"])
         st["red"][s % 2].copy_(torch.where(walking[:, None], part,
                                            torch.zeros_like(part)))
     else:
-        ended = valid & st["done"]
-        part = rank.owned_sa_partial(idx, st["rnk"])
+        ended = st["st"] == ENDED
+        part = rank.owned_sa_partial(idx, st["w"] & RANK_MASK)
         st["sa"].copy_(torch.where(ended, part, torch.zeros_like(part)))
 
 
 def tp_walk_finish_plain(idx, valid, st):
     """The offsets from the reduced SA words (fm_tp_finish_kernel): sa +
-    steps where a valid lane ended at a mark within srate steps, else
-    -1."""
-    st["out"].copy_(torch.where(valid & st["done"], st["sa"] + st["steps"],
+    steps where a lane ended at a mark within srate steps (a DEAD lane,
+    not valid, never does), else -1."""
+    st["out"].copy_(torch.where(st["st"] == ENDED,
+                                st["sa"] + (st["w"] >> STEPS_SHIFT),
                                 torch.full_like(st["sa"], -1)))
 
 

@@ -1316,3 +1316,190 @@ def test_tp_kernels_past_2_31_rows(cuda):
     assert (top[2048:] == bot[2048:]).all()
     del shards
     torch.cuda.empty_cache()
+
+
+# ---- the redesigned tp kernels' edges: tiles, the ring, ownership, state ----
+
+
+def _tp_setup(cuda, d, srate=8):
+    from omp_bowtie2_prime_tpu_torch.index.format import GpuIndex
+    from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
+
+    text, fm = _fm_index(200_000, 10, srate)
+    whole = GpuIndex.from_host(fm, cuda)
+    return text, fm, whole, shard_views(whole, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 17, 257, 700_001])
+def test_tp_kernels_tiles_and_ring(cuda, B):
+    """K3a-tp and K3b-tp at lane counts that are not a multiple of a
+    256-lane tile (B = 1, 17, 257) or of the persistent grid's stride
+    (700,001 lanes: ~2,700 tiles over at most the card's resident blocks,
+    so every block's ring turns over several times and the last tile
+    fills part of its stage), at D = 2, against the plain steps and the
+    whole-index kernels."""
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
+
+    text, fm, whole, shards = _tp_setup(cuda, 2)
+    rng = np.random.default_rng(B)
+    seeds = torch.from_numpy(_fm_seeds(text, rng, B, 22, 0.2)).to(cuda)
+    valid = torch.from_numpy(rng.random(B) < 0.9).to(cuda)
+    got = _tp_held("search", shards, seeds, valid, True)
+    for g, w in zip(got, fm_cuda.search_seeds(whole, seeds, valid, True)):
+        assert torch.equal(g, w)
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, B)).to(cuda)
+    off = _tp_held("walk", shards, rows, valid)[0]
+    assert torch.equal(off, fm_cuda.resolve_rows(whole, rows, valid))
+
+
+def _plain_trace(whole, seeds, valid, sub_ftab, rows):
+    """The record indices the whole index's plain search reads at each
+    LF step of each lane (both range ends where the step updates), and
+    those its plain walk reads from ``rows``."""
+    from omp_bowtie2_prime_tpu_torch.ops import rank, seed_search
+
+    blocks = []
+
+    def on_step(upd, top, bot):
+        blocks.append(torch.where(upd[:, None], torch.stack(
+            [top >> 10, bot >> 10], 1), torch.full_like(top, -1)[:, None]))
+
+    seed_search.search_seeds_plain(whole, seeds, valid, sub_ftab,
+                                   on_step=on_step)
+    walked, row, live = [], rows.clone(), torch.ones_like(rows,
+                                                          dtype=torch.bool)
+    for _ in range(whole.srate):
+        walked.append(torch.where(live, row >> 10, -1))
+        marked, _r, nxt = rank.walk_step(whole, row)
+        live = live & ~marked
+        row = torch.where(live, nxt, row)
+    return torch.cat(blocks, 1), torch.stack(walked, 1)
+
+
+@pytest.mark.cuda
+def test_tp_kernels_when_a_rank_owns_nothing(cuda):
+    """D = 4: lanes whose every LF step (search) and every walk step
+    reads records of ranks 0-2 only. Rank 3 lists no end in any warp, its
+    partials are all zero at every step, and the kernels equal the plain
+    steps; with all lanes, every rank's."""
+    text, fm, whole, shards = _tp_setup(cuda, 4)
+    rng = np.random.default_rng(43)
+    S = 60_000
+    seeds = torch.from_numpy(_fm_seeds(text, rng, S, 22)).to(cuda)
+    valid = torch.ones(S, dtype=torch.bool, device=cuda)
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, S)).to(cuda)
+    sblk, wblk = _plain_trace(whole, seeds, valid, False, rows)
+    lo3 = 3 * shards[0].tp.nblk_loc
+    keep_s = ~(sblk >= lo3).any(1) & (sblk >= 0).any(1)
+    keep_w = ~(wblk >= lo3).any(1)
+    assert int(keep_s.sum()) > 1000 and int(keep_w.sum()) > 1000
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
+
+    for kind, args in (("search", (seeds[keep_s].contiguous(),
+                                   valid[keep_s].contiguous(), False)),
+                       ("walk", (rows[keep_w].contiguous(),
+                                 valid[keep_w].contiguous()))):
+        parts = []
+        call = (fm_cuda.tp_search_seeds if kind == "search" else
+                fm_cuda.tp_resolve_rows)
+        call(shards, *args, on_step=lambda i, p: parts.append(
+            [x.clone() for x in p]))
+        steps = parts if kind == "search" else parts[:-1]
+        assert steps and all(int(p[3].abs().sum()) == 0 for p in steps)
+        _tp_held(kind, shards, *args)
+    _tp_held("search", shards, seeds, valid, False)
+    _tp_held("walk", shards, rows, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2])
+def test_tp_kernels_all_lanes_dead(cuda, d):
+    """No lane alive: all invalid, or all with an N (search), all
+    invalid (walk). Every partial is zero, the ranges empty, the offsets
+    -1, as the plain steps give."""
+    text, fm, whole, shards = _tp_setup(cuda, d)
+    rng = np.random.default_rng(d)
+    S = 5_000
+    seeds = torch.from_numpy(_fm_seeds(text, rng, S, 22)).to(cuda)
+    none = torch.zeros(S, dtype=torch.bool, device=cuda)
+    with_n = seeds.clone()
+    with_n[:, 3] = 4
+    for s, v in ((seeds, none), (with_n, ~none)):
+        top, bot = _tp_held("search", shards, s, v, False)
+        assert int(top.abs().sum()) == int(bot.abs().sum()) == 0
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, S)).to(cuda)
+    assert (_tp_held("walk", shards, rows, none)[0] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int64])
+@pytest.mark.parametrize("L", [22, 50])
+def test_tp_search_negative_and_raw_bases(cuda, dtype, L):
+    """K3a-tp on seeds with negative bases inside them (no update at that
+    step), sub-ftab lanes, and bases past 4 on some lanes (the raw lanes,
+    which read their base from the seeds each step); at L = 22 (12 steps,
+    packed into the state) and L = 50 (40 steps: past the 32 the state
+    packs, every lane reads the seeds), int8 and int64, at D = 2."""
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
+
+    text, fm, whole, shards = _tp_setup(cuda, 2)
+    rng = np.random.default_rng(L + dtype.itemsize)
+    S = 30_001
+    seeds = _fm_seeds(text, rng, S, L, 0.3)
+    neg = rng.random(S) < 0.1
+    seeds[neg, rng.integers(0, L, int(neg.sum()))] = -3
+    raw = rng.random(S) < 0.05
+    seeds[raw, rng.integers(0, L, int(raw.sum()))] = rng.integers(
+        5, 100, int(raw.sum()))
+    seeds = torch.from_numpy(seeds).to(dtype).to(cuda)
+    valid = torch.from_numpy(rng.random(S) < 0.95).to(cuda)
+    got = _tp_held("search", shards, seeds, valid, True)
+    for g, w in zip(got, fm_cuda.search_seeds(whole, seeds, valid, True)):
+        assert torch.equal(g, w)
+    assert int((got[1] > got[0]).sum()) > S // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("srate", [8, 16])
+def test_tp_walk_state_read_back(cuda, srate):
+    """The 9 B walk state (a row or an ended lane's rank | steps << 48,
+    and a status byte) as the SA and finish kernels read it back: rows
+    whose walk ends at the last step, steps = srate - 1 (the SA kernel's
+    apply ends them), with dead lanes and lanes that end earlier; the
+    state after the loop decodes to the plain steps' and the offsets are
+    the whole index's."""
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
+
+    text, fm, whole, shards = _tp_setup(cuda, 2, srate)
+    rng = np.random.default_rng(srate)
+    R = 40_000
+    rows = torch.from_numpy(rng.integers(0, fm.nrows, 4 * R)).to(cuda)
+    ones = torch.ones_like(rows, dtype=torch.bool)
+    off = fm_cuda.resolve_rows(whole, rows, ones)
+    last = rows[(off >= 0) & (off % srate == srate - 1)][:R // 2]
+    rows = torch.cat([last, rows[: R - last.shape[0]]])
+    valid = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
+    states = {}
+
+    def keep(name, finish):
+        def fn(idx, v, st):
+            finish(idx, v, st)
+            if idx is shards[0]:
+                states[name] = {k: st[k].clone() for k in ("w", "st")}
+        return fn
+
+    got = walk.tp_walk_loop(shards, rows, valid, fm_cuda._tp_walk_step,
+                            keep("kernel", fm_cuda._tp_walk_finish))
+    want = walk.tp_walk_loop(shards, rows, valid, walk.tp_walk_step_plain,
+                             keep("plain", walk.tp_walk_finish_plain))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, fm_cuda.resolve_rows(whole, rows, valid))
+    for k in ("w", "st"):
+        assert torch.equal(states["kernel"][k], states["plain"][k])
+    _row, steps, _rnk, done = walk.tp_walk_unpack(states["kernel"])
+    n = last.shape[0]
+    assert (done[:n] == valid[:n]).all()
+    assert (steps[:n][valid[:n]] == srate - 1).all()
+    assert (states["kernel"]["st"][~valid] == walk.DEAD).all()

@@ -385,3 +385,82 @@ def test_gloo_aligners_equal_one_device_and_jax(worlds, world, kind, mode):
     for rank, got in enumerate(worlds["ranks"][world]):
         assert got[kind, mode] == want, rank
         assert got["tpReduce"] > 0
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_packed_state_decodes_at_every_step(data, d):
+    """The step loops' state decoded after every plain step on D shards:
+    the search's packed bases (2 bits a step), its moves mask and flags
+    are the seeds' (step i's base at position nsteps - 1 - i) and its
+    range the whole index's plain search's entering that step; the
+    walk's 9 B (a row, or an ended lane's rank | steps << 48, and a
+    status byte) decode (walk.tp_walk_unpack) to the unpacked walk's row,
+    steps, rank and done flag (rank.walk_step on the whole index, as
+    _walk_plain keeps them), dead lanes DEAD."""
+    whole = _index(data, "fm")
+    shards = shard_views(whole, d)
+    rng = np.random.default_rng(70 + d)
+    seeds = torch.from_numpy(_seeds(data["text"], rng, S, 0.3))
+    valid = torch.from_numpy(rng.random(S) < 0.9)
+    nsteps, ftab_hi = seed_search.search_geometry(L, whole.ftab_k, True)
+    ranges = []
+    seed_search.search_seeds_plain(
+        whole, seeds, valid, True,
+        on_step=lambda upd, top, bot: ranges.append((top, bot)))
+    seen = []
+
+    def search_step(idx, *a):
+        seed_search.tp_search_step_plain(idx, *a)
+        st = a[-1]
+        if idx is shards[0] and a[-3] < nsteps:
+            seen.append({k: st[k].clone() for k in ("top", "bot", "codes",
+                                                    "mask", "flags")})
+
+    seed_search.tp_search_loop(shards, seeds, valid, True, search_step)
+    assert len(seen) == nsteps == len(ranges)
+    pos = nsteps - 1 - torch.arange(nsteps)
+    c = seeds[:, pos]
+    short = ((seen[0]["flags"] & seed_search.SHORT) != 0)
+    moves = (c >= 0) & ((pos < ftab_hi)[None, :] | short[:, None])
+    for i, st in enumerate(seen):
+        assert torch.equal(st["top"], ranges[i][0])
+        assert torch.equal(st["bot"], ranges[i][1])
+        assert torch.equal(st["codes"], seen[0]["codes"])
+        assert torch.equal((st["codes"] >> (2 * i)) & 3, c[:, i] & 3)
+        assert torch.equal((st["mask"] >> i) & 1 != 0, moves[:, i])
+        assert torch.equal((st["flags"] & seed_search.RAW) != 0,
+                           (c > 3).any(dim=1))
+    assert torch.equal(short, seeds[:, L - 1] < 0)
+
+    rows = torch.from_numpy(data["rows"][:2000])
+    walked = []
+
+    def walk_step(idx, r, v, s, srate, st):
+        walk.tp_walk_step_plain(idx, r, v, s, srate, st)
+        if idx is shards[0]:
+            walked.append(walk.tp_walk_unpack(st) + (st["st"].clone(),))
+
+    rvalid = torch.from_numpy(rng.random(len(rows)) < 0.9)
+    walk.tp_walk_loop(shards, rows, rvalid, walk_step,
+                      walk.tp_walk_finish_plain)
+    row = rows.clone()
+    steps, rnk = torch.zeros_like(row), torch.zeros_like(row)
+    done = torch.zeros_like(rvalid)
+    assert len(walked) == whole.srate + 1
+    for s in range(whole.srate + 1):
+        g_row, g_steps, g_rnk, g_done, status = walked[s]
+        v = rvalid
+        assert torch.equal(g_done[v], done[v])
+        walking = v & ~done
+        assert torch.equal(g_row[walking], row[walking])
+        assert torch.equal(g_steps[v & done], steps[v & done])
+        assert torch.equal(g_rnk[v & done], rnk[v & done])
+        assert (status[~v] == walk.DEAD).all()
+        assert (status[walking] == walk.WALKING).all()
+        marked, r, nrow = trank.walk_step(whole, row)
+        hit = marked & ~done & v
+        rnk = torch.where(hit, r, rnk)
+        done = done | hit
+        row = torch.where(done, row, nrow)
+        steps = torch.where(done, steps, steps + 1)
+    assert int(done.sum()) > len(rows) // 2

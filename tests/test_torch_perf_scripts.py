@@ -270,3 +270,22 @@ def test_no_fallback_without_a_card():
         pytest.skip("this host has a card")
     with pytest.raises(SystemExit, match="no CUDA device"):
         torch_gather_bench.main(["--rows", "10"])
+
+
+@pytest.mark.parametrize("cmd", ["kernels", "mesh"])
+def test_fm_tp_ab_takes_its_tree_and_needs_a_card(cmd, tmp_path,
+                                                  monkeypatch):
+    """scripts/torch_fm_tp_ab.py imports the package from the tree it is
+    given and refuses one whose package is not the one imported; on the
+    tree in use it stops without a card rather than time anything on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    ab = importlib.util.module_from_spec(importlib.util.spec_from_file_location(
+        "torch_fm_tp_ab", os.path.join(ROOT, "scripts", "torch_fm_tp_ab.py")))
+    ab.__spec__.loader.exec_module(ab)
+    with pytest.raises(SystemExit, match="imported the package from"):
+        ab.main([cmd, str(tmp_path), str(tmp_path)])
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        ab.main([cmd, ROOT, str(tmp_path)])
