@@ -114,7 +114,7 @@ Phases, one line each, stamped with the seconds since the start:
      are the phase's, mate rescue's 160x641 among them; a tp run reduced
      on its aligners' streams and its shard holds ``tp_hbm_per_device``'s
      bytes; a tp run launched every tp kernel (K3a-tp, K3b-tp and the
-     walk's SA word and finish) and neither whole-index FM kernel, a
+     walk's last step, K3b-tp-sa) and neither whole-index FM kernel, a
      data run the reverse; reads/s, its own blocks' reads,
      dataGather, REDUCES, the bytes a reduce and tpReduce. (c) phase 12
      (d)'s A^n index sharded over two gloo ranks: each rank's bytes on
@@ -152,8 +152,9 @@ Phases, one line each, stamped with the seconds since the start:
      records' bytes (phase 5's index, the A^n index), and the whole
      search_resolve_seeds under torch's sync debug mode: no host sync
      inside it. The row-sharded steps (K3a-tp, K3b-tp: a launch a step,
-     the owners' counts reduced between launches; the walk's SA word and
-     finish, K3b-tp-sa and K3b-tp-finish) on phase 5's index cut into 1,
+     the owners' counts reduced between launches; the walk's last step,
+     K3b-tp-sa, whose partials reduce to the offsets) on phase 5's index
+     cut into 1,
      2 and 4 in-process shards and on the 3.1 G-row index cut into 2
      (``FM_TP_CASES``, views of the whole), and on the 3.1 G rows at D =
      2 at the aligner's own shapes too (``tp_aligner_shapes``: int8 seeds
@@ -163,8 +164,8 @@ Phases, one line each, stamped with the seconds since the start:
      shard 0 timed L2-warm (after a spin of the card's that outlasts the
      host's enqueue) and cold against its layout-free bound
      (``tp_search_bytes``, ``tp_walk_bytes``), a one-launch kernel's (the
-     walk's SA word and finish) as the median of 20 single launches with
-     the least and the most. Every
+     walk's last step) as the median of 20 single launches with the
+     least and the most. Every
      path that aligns on a whole index must launch K3a and K3b (their
      launches are logged beside K1's and K2's); phase 12 (d) runs them
      past 2^31 rows; phase 13's tp meshes (a row-sharded index) must
@@ -178,7 +179,7 @@ phase 2 the instruction mix of one DP row of each kernel (cuobjdump).
 Then one JSON line describing the kernels (each DP kernel's narrow and
 wide body is an entry of its own, with its own time, bound and launches,
 the launches also by path; K3a, K3b, K3a-tp, K3b-tp and the tp walk's
-SA word and finish kernels an entry each)
+last step, K3b-tp-sa, an entry each)
 and, last, the result line.
 Exits non-zero, printing no result, on any failure, without a CUDA
 device, or without the package beside it. Imports no JAX.
@@ -264,7 +265,8 @@ KERNELS = {
     # the same functions on a row-sharded index, a launch a step (the
     # JAX package runs them under shard_map, each LF step's record
     # psum'd by _gather_block, ops/rank.py:103, the SA row by sa_lookup,
-    # :126); the walk's SA word and its finish are kernels of their own
+    # :126); the walk's last step, the SA word, reduces to the offsets
+    # (ops/walk.py:83) and is a kernel of its own
     "K3a-tp": dict(
         name="fm_tp_search_step", route="cuda",
         source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
@@ -278,15 +280,11 @@ KERNELS = {
     "K3b-tp-sa": dict(
         name="fm_tp_sa", route="cuda",
         source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
-        replaces="omp_bowtie2_prime_tpu/ops/rank.py:126",
+        replaces=("omp_bowtie2_prime_tpu/ops/rank.py:126, "
+                  "omp_bowtie2_prime_tpu/ops/walk.py:83"),
         device_kernel="fm_tp_sa_kernel"),
-    "K3b-tp-finish": dict(
-        name="fm_tp_finish", route="cuda",
-        source="omp_bowtie2_prime_tpu_torch/csrc/fm_search.cu",
-        replaces="omp_bowtie2_prime_tpu/ops/walk.py:83",
-        device_kernel="fm_tp_finish_kernel"),
 }
-FM_TAGS = ("K3a", "K3b", "K3a-tp", "K3b-tp", "K3b-tp-sa", "K3b-tp-finish")
+FM_TAGS = ("K3a", "K3b", "K3a-tp", "K3b-tp", "K3b-tp-sa")
 # the row-sharded kernels, in the order of tp_counts
 TP_TAGS = FM_TAGS[2:]
 # K3a's and K3b's launches of every counted run (``counted``, phase 13's
@@ -1145,18 +1143,19 @@ def tp_search_bytes(idx, shard, seeds, valid, sub_ftab):
 
 def tp_walk_bytes(idx, shard, rows, valid):
     """Bytes one shard's launches of the row-sharded walk must move on
-    these inputs, whatever the record's layout, by kernel (K3b-tp, its SA
-    word, its finish): ``walk_bytes``' sectors of each step for the rows
-    whose record the shard holds (a hit: its mark bits and marked rank; a
-    miss: its mark bit, bases and occ count) and the SA word of an ended
-    lane whose sample row it holds; rows, valid and the offsets once;
-    the partials (16 B a lane, 8 for the SA word) written and the
-    reduced ones read; and at each boundary between two launches the
-    state a lane needs, written and read back: its row, or its marked
-    rank once it has ended (it reads its row no more), in 8 B, and in one
-    byte its steps (< srate <= 64) and whether it walks, has ended or is
-    dead; after the SA word the byte alone. The steps come from the
-    whole index's plain walk (``idx``)."""
+    these inputs, whatever the record's layout, by kernel (K3b-tp, and
+    K3b-tp-sa, the last step): ``walk_bytes``' sectors of each step for
+    the rows whose record the shard holds (a hit: its mark bits and
+    marked rank; a miss: its mark bit, bases and occ count) and the SA
+    word of an ended lane whose sample row it holds; rows and valid
+    once; the partials (16 B a lane) written and the reduced ones read;
+    at each boundary between two launches the state a lane needs,
+    written and read back: its row, or its marked rank once it has ended
+    (it reads its row no more), in 8 B, and in one byte its steps (<
+    srate <= 64) and whether it walks, has ended or is dead; and the
+    last step's partials of the offsets (8 B a lane) written once: their
+    reduce is the result. The steps come from the whole index's plain
+    walk (``idx``)."""
     from omp_bowtie2_prime_tpu_torch.ops import rank as fm_rank
 
     lo, hi = _held_rows(shard)
@@ -1179,11 +1178,11 @@ def tp_walk_bytes(idx, shard, rows, valid):
     sa_held = ended & ((rnk >> 7) >= slo) & ((rnk >> 7) < shi)
     R, s = rows.shape[0], idx.srate
     # steps 0 .. srate - 1 write srate states and partials, and read back
-    # all but the last (the SA word's launch reads those)
+    # all but the last (the last step's launch reads those, and writes
+    # the offsets' partials)
     return {"K3b-tp": 9 * R + 32 * sectors
             + R * ((2 * s - 1) * 9 + (2 * s - 1) * 16),
-            "K3b-tp-sa": 32 * int(sa_held.sum()) + R * (9 + 16 + 1 + 8),
-            "K3b-tp-finish": R * (1 + 8 + 8)}
+            "K3b-tp-sa": 32 * int(sa_held.sum()) + R * (9 + 16 + 8)}
 
 
 # the card's spin before each L2-warm launch of ``time_launches``, in
@@ -1230,18 +1229,15 @@ def time_launches(recs, n, flush=None):
 def _tp_tag(kind, a):
     """The kernel a step of a row-sharded loop launches, from its
     arguments past the index: the search's step, the walk's step (rows,
-    valid, s, srate, state: s < srate), SA word (s == srate) or finish
-    (valid, state)."""
+    valid, s, srate, state: s < srate) or its last (s == srate)."""
     if kind == "search":
         return "K3a-tp"
-    if len(a) == 2:
-        return "K3b-tp-finish"
     return "K3b-tp" if a[2] < a[3] else "K3b-tp-sa"
 
 
 def tp_replay(kind, shards, args):
     """A row-sharded step loop (``kind``: "search", K3a-tp, on (seeds,
-    valid, sub_ftab); "walk", K3b-tp with its SA word and finish, on
+    valid, sub_ftab); "walk", K3b-tp with its last step, K3b-tp-sa, on
     (rows, valid)) over in-process ``shards`` through the kernels and
     through the plain steps on the card: every step's partials of every
     shard and the outputs bit for bit. Returns (outputs, {kernel tag:
@@ -1288,10 +1284,9 @@ def tp_replay(kind, shards, args):
     else:
         got = (walk.tp_walk_loop(
             shards, *args, recorded(fm_cuda._tp_walk_step),
-            recorded(fm_cuda._tp_walk_finish), grab(kparts)).clone(),)
+            grab(kparts)).clone(),)
         want = (walk.tp_walk_loop(
-            shards, *args, timed(walk.tp_walk_step_plain),
-            timed(walk.tp_walk_finish_plain), grab(pparts)),)
+            shards, *args, timed(walk.tp_walk_step_plain), grab(pparts)),)
     torch.cuda.synchronize()
     bad = [(i, r) for i, (ks, ps) in enumerate(zip(kparts, pparts))
            for r, (k, p) in enumerate(zip(ks, ps)) if not torch.equal(k, p)]
@@ -1305,8 +1300,8 @@ def tp_replay(kind, shards, args):
 
 
 def tp_hold(kind, label, whole, shards, args, flush, floor):
-    """One row-sharded loop (``kind``: "search", K3a-tp; "walk", K3b-tp,
-    K3b-tp-sa and K3b-tp-finish) on one case: its kernels against the
+    """One row-sharded loop (``kind``: "search", K3a-tp; "walk", K3b-tp
+    and K3b-tp-sa) on one case: its kernels against the
     plain steps (``tp_replay``), its outputs against the whole index's
     kernel, and each kernel's launches on shard 0 timed L2-warm and cold
     against its part of ``tp_search_bytes`` / ``tp_walk_bytes``. Returns
@@ -1582,8 +1577,7 @@ def align(idx, fq, sam, device, local, flags=()):
                     + (["--local"] if local else []))
 
 
-TP_COUNTERS = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA",
-               "LAUNCHES_TP_FINISH")
+TP_COUNTERS = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA")
 
 
 def zero_fm_counts():
@@ -1595,7 +1589,7 @@ def zero_fm_counts():
 
 def tp_counts():
     """The launches of the row-sharded kernels (TP_TAGS: the search step,
-    the walk step, the SA word, the finish) since ``zero_fm_counts``."""
+    the walk step, the walk's last step) since ``zero_fm_counts``."""
     return [getattr(fm_cuda, name) for name in TP_COUNTERS]
 
 
@@ -3204,8 +3198,7 @@ def main():
     fm_tags = {"fm_search_kernel": "K3a", "fm_walk_kernel": "K3b",
                "fm_tp_search_step_kernel": "K3a-tp",
                "fm_tp_walk_step_kernel": "K3b-tp",
-               "fm_tp_sa_kernel": "K3b-tp-sa",
-               "fm_tp_finish_kernel": "K3b-tp-finish"}
+               "fm_tp_sa_kernel": "K3b-tp-sa"}
     for blk in report.split("Compiling entry function")[1:]:
         fm = re.search(r"(%s)(I[al]E)?" % "|".join(fm_tags), blk)
         nums = re.search(r"(\d+) bytes spill stores.*?Used (\d+) registers",

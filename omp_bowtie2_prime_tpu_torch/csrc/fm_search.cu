@@ -58,8 +58,8 @@
 // ops/rank._owner_gather). Here the owner counts where the record lies
 // and the reduce carries the answer: fm_tp_search_step_kernel (K3a-tp)
 // is one LF step of the search, fm_tp_walk_step_kernel (K3b-tp) one walk
-// step, fm_tp_sa_kernel the SA word and fm_tp_finish_kernel the offsets;
-// the step loop and its reduces are ops/seed_search.tp_search_loop and
+// step, fm_tp_sa_kernel (K3b-tp-sa) the last, whose SA words and steps
+// reduce to the offsets; the step loop and its reduces are ops/seed_search.tp_search_loop and
 // ops/walk.tp_walk_loop, their plain steps tp_search_step_plain and
 // tp_walk_step_plain. Launch i applies the reduced answer of step i - 1
 // (fchr and the zoff rule are replicated: added after the reduce), then
@@ -1055,43 +1055,70 @@ fm_tp_walk_step_kernel(const int64_t* __restrict__ rows,
   }
 }
 
-// K3b-tp's SA word: applies the last step's red_in (step = srate), then
-// writes this rank's SA word of each ended lane (the sample's word at its
-// rank where it owns that row of the sample, 0 elsewhere: a zero row
-// gives 0). One thread a lane.
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+// K3b-tp-sa: the walk's last launch (step = srate), which ends it: the
+// SA word of the JAX package's sa_lookup (ops/rank.py:126, a 1 KB row
+// psum'd a lane on a row-sharded index) and the offsets of its
+// resolve_rows (ops/walk.py:83-84), as walk.tp_walk_step_plain at s ==
+// srate. It applies the last step's red_in and writes this rank's partial
+// of each lane's offset into off, whose sum over the model group is the
+// offset: the group's rank 0 gives an ended lane's steps and -1 for every
+// other lane (dead, or still walking after srate steps); the owner of an
+// ended lane's SA sample row adds the sample's word (a row no rank owns,
+// or one of the owner's zero padding, adds nothing: the sum is the steps).
+// So the reduce of the SA words is the walk's result and no launch
+// follows it. The state comes through K3b-tp's tile ring, one thread a
+// lane; an owning thread reads its word (a ballot that listed a warp's
+// owned lanes for its first threads, as K3b-tp lists its rows, was no
+// faster: PERF.md), and the partials go out in one coalesced 8-byte store
+// a lane. Nothing reads the state after this step, so none is written
+// back. What bounds it is a launch's fixed cost (~6 us on the card,
+// PERF.md), about twice its bytes' time (25 B a lane read, 8 written, a
+// sector an owned word).
+__global__ void __launch_bounds__(kTile)
 fm_tp_sa_kernel(int nr, Shard sa, const int64_t* __restrict__ fchr,
-                long long zoff, int step, int64_t* __restrict__ w_s,
-                uint8_t* __restrict__ st_s,
+                long long zoff, int step, const int64_t* __restrict__ w_s,
+                const uint8_t* __restrict__ st_s,
                 const int64_t* __restrict__ red_in,
-                int64_t* __restrict__ sa_out) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= nr) return;
-  long long w = w_s[r];
-  uint8_t st = st_s[r];
-  if (st == kWalking) {
-    walk_apply(reinterpret_cast<const longlong2*>(red_in)[r], fchr, zoff,
-               step, w, st);
-    w_s[r] = w;
-    st_s[r] = st;
+                int64_t* __restrict__ off) {
+  __shared__ WalkTile ring[2];
+  __shared__ uint64_t bars[2];
+  const int x = threadIdx.x;
+  const int ntiles = (nr + kTile - 1) / kTile;
+  const int64_t* tab = static_cast<const int64_t*>(sa.t);
+  auto fetch = [&](int k, int tile) {
+    const unsigned n = tile_lanes(tile, nr);
+    const size_t o = (size_t)tile * kTile;
+    WalkTile& d = ring[k];
+    bar_expect(&bars[k], n * (8 + 16 + 1));
+    bulk_copy(d.w, w_s + o, 8 * n, &bars[k]);
+    bulk_copy(d.red, red_in + 2 * o, 16 * n, &bars[k]);
+    bulk_copy(d.st, st_s + o, n, &bars[k]);
+  };
+  ring_start(bars, ntiles, fetch);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const long long r = (long long)tile * kTile + x;
+    const bool in = r < nr;
+    const int k = it & 1;
+    bar_wait(&bars[k], (it >> 1) & 1);
+    long long w = ring[k].w[x];
+    uint8_t st = ring[k].st[x];
+    const longlong2 red = ring[k].red[x];
+    ring_next(k, tile, ntiles, fetch);
+    if (in && st == kWalking) walk_apply(red, fchr, zoff, step, w, st);
+    const bool ended = in && st == kEnded;
+    const long long rnk = w & kRankMask;
+    const bool own = ended && owns(sa, rnk >> 7, false) == 1;
+    // an owning thread reads its own word: a warp's reads go out as one
+    // instruction, in one round
+    long long part =
+        own ? tab[(size_t)((rnk >> 7) - sa.base) * kTabWords + (rnk & 127)]
+            : 0;
+    if (in) {
+      if (sa.rank0) part += ended ? (w >> kStepsShift) : -1;
+      off[r] = part;
+    }
   }
-  const long long rnk = w & kRankMask;
-  const int own = st == kEnded ? owns(sa, rnk >> 7, false) : 0;
-  sa_out[r] = own == 1 ? static_cast<const int64_t*>(sa.t)[
-                             (size_t)((rnk >> 7) - sa.base) * kTabWords +
-                             (rnk & 127)]
-                       : 0;
-}
-
-// K3b-tp's offsets from the reduced SA words: sa + steps where a lane
-// ended at a mark, else -1. One thread a lane.
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-fm_tp_finish_kernel(int nr, const int64_t* __restrict__ w,
-                    const uint8_t* __restrict__ st,
-                    const int64_t* __restrict__ sa,
-                    int64_t* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < nr) out[r] = st[r] == kEnded ? sa[r] + (w[r] >> kStepsShift) : -1;
 }
 
 Shard shard_of(const void* t, long long nhave, long long nloc, int rank,
@@ -1246,34 +1273,23 @@ extern "C" int fm_tp_walk_step_launch(
   return (int)cudaGetLastError();
 }
 
-// The SA word after the walk's last step (step = srate): the SA sample's
-// shard (sa int64 [nhave, 128] of nloc rows owned), the state and red_in
-// as the walk step's; sa_out int64 [R].
+// The walk's last step (step = srate): the SA sample's shard (sa int64
+// [nhave, 128] of nloc rows owned), the state and red_in as the walk
+// step's (read, not written); off int64 [R], the offsets' partials.
 extern "C" int fm_tp_sa_launch(int R, const void* sa, long long nhave,
                                long long nloc, int rank, int size,
                                const void* fchr, long long zoff, int step,
-                               void* w, void* st, const void* red_in,
-                               void* sa_out, void* stream) {
+                               const void* w, const void* st,
+                               const void* red_in, void* off, void* stream) {
   if (R <= 0) return 0;
-  if (nhave > nloc || rank < 0 || rank >= size || step < 1)
+  if (!aligned16({w, st, red_in}) || nhave > nloc || rank < 0 ||
+      rank >= size || step < 1)
     return (int)cudaErrorInvalidValue;
-  const int threads = 32 * kWarpsPerBlock;
-  fm_tp_sa_kernel<<<(R + threads - 1) / threads, threads, 0,
+  const int ntiles = (R + kTile - 1) / kTile;
+  fm_tp_sa_kernel<<<persistent_grid(fm_tp_sa_kernel, ntiles), kTile, 0,
                     (cudaStream_t)stream>>>(
       R, shard_of(sa, nhave, nloc, rank, size), (const int64_t*)fchr, zoff,
-      step, (int64_t*)w, (uint8_t*)st, (const int64_t*)red_in,
-      (int64_t*)sa_out);
-  return (int)cudaGetLastError();
-}
-
-// The offsets: the state w, st and the reduced sa [R] -> out int64 [R].
-extern "C" int fm_tp_finish_launch(int R, const void* w, const void* st,
-                                   const void* sa, void* out, void* stream) {
-  if (R <= 0) return 0;
-  const int threads = 32 * kWarpsPerBlock;
-  fm_tp_finish_kernel<<<(R + threads - 1) / threads, threads, 0,
-                        (cudaStream_t)stream>>>(
-      R, (const int64_t*)w, (const uint8_t*)st, (const int64_t*)sa,
-      (int64_t*)out);
+      step, (const int64_t*)w, (const uint8_t*)st, (const int64_t*)red_in,
+      (int64_t*)off);
   return (int)cudaGetLastError();
 }

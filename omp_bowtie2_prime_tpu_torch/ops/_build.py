@@ -140,12 +140,9 @@ def get_lib(csrc: str = CSRC) -> ctypes.CDLL:
                 lib.fm_tp_walk_step_launch.argtypes = (
                     [P, P, I, P, LL, LL, I, I, P, LL, I] + [P] * 5)
                 # R, the SA sample's shard, fchr, zoff, step, w, st,
-                # red_in, sa_out, stream
+                # red_in, off, stream
                 lib.fm_tp_sa_launch.restype = I
                 lib.fm_tp_sa_launch.argtypes = (
                     [I, P, LL, LL, I, I, P, LL, I] + [P] * 5)
-                # R, w, st, sa, out, stream
-                lib.fm_tp_finish_launch.restype = I
-                lib.fm_tp_finish_launch.argtypes = [I, P, P, P, P, P]
             _libs[csrc] = lib
         return _libs[csrc]

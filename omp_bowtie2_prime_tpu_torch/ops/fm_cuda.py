@@ -14,20 +14,20 @@ over its model group between two LF steps, which no launch can hold:
 ``tp_search_seeds`` and ``tp_resolve_rows`` run the step loops
 (seed_search.tp_search_loop, walk.tp_walk_loop) with a kernel launch a
 step on CUDA tensors (``fm_tp_search_step_kernel``; for the walk
-``fm_tp_walk_step_kernel``, then ``fm_tp_sa_kernel`` and
-``fm_tp_finish_kernel``), each launch and each reduce on the current
-stream (the aligner's), so an NCCL reduce follows its kernel with no
-host sync; on CPU tensors the plain steps. Each launch writes the counts
-of the rows this rank owns, and the reduce sums 16 B a lane where the
-JAX package's route (the plain versions on a sharded index) sums 512 B
+``fm_tp_walk_step_kernel``, then ``fm_tp_sa_kernel``, whose partials
+sum to the offsets), each launch and each reduce on the current stream
+(the aligner's), so an NCCL reduce follows its kernel with no host
+sync; on CPU tensors the plain steps. Each launch writes the counts of
+the rows this rank owns, and the reduce sums 16 B a lane where the JAX
+package's route (the plain versions on a sharded index) sums 512 B
 records. They also take a list of in-process shards
 (parallel/tp_index.shard_views), whose reduce is a sum.
 
 ``LAUNCHES_SEARCH``, ``LAUNCHES_WALK``, ``LAUNCHES_TP_SEARCH``,
-``LAUNCHES_TP_WALK`` (fm_tp_walk_step_kernel's), ``LAUNCHES_TP_SA`` and
-``LAUNCHES_TP_FINISH`` count each kernel's launches, ``STREAMS`` all of
-them by the CUDA stream they went to; the counts are kept under a lock,
-as two align workers launch at once (-p 2).
+``LAUNCHES_TP_WALK`` (fm_tp_walk_step_kernel's) and ``LAUNCHES_TP_SA``
+count each kernel's launches, ``STREAMS`` all of them by the CUDA stream
+they went to; the counts are kept under a lock, as two align workers
+launch at once (-p 2).
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ LAUNCHES_WALK = 0
 LAUNCHES_TP_SEARCH = 0
 LAUNCHES_TP_WALK = 0
 LAUNCHES_TP_SA = 0
-LAUNCHES_TP_FINISH = 0
 # launches by cudaStream_t
 STREAMS: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
@@ -264,7 +263,8 @@ def tp_search_seeds(idx, seeds: torch.Tensor, valid: torch.Tensor,
 
 def _tp_walk_step(idx, rows, valid, s, srate, st):
     """Step ``s`` of walk.tp_walk_loop: a launch of fm_tp_walk_step_kernel
-    (s < srate) or of fm_tp_sa_kernel (s == srate) on this shard."""
+    (s < srate) or of fm_tp_sa_kernel (s == srate: the offsets' partials)
+    on this shard."""
     R = rows.shape[0]
     if R == 0:
         return
@@ -282,18 +282,8 @@ def _tp_walk_step(idx, rows, valid, s, srate, st):
         stream = _launch(
             "fm_tp_sa_launch", rows.device, R,
             *_shard_args(idx.sa_sample, idx.tp.nsa_loc, idx.tp),
-            idx.fchr.data_ptr(), idx.zoff, s, *state, st["sa"].data_ptr())
+            idx.fchr.data_ptr(), idx.zoff, s, *state, st["off"].data_ptr())
         _count("LAUNCHES_TP_SA", stream)
-
-
-def _tp_walk_finish(idx, valid, st):
-    R = valid.shape[0]
-    if R == 0:
-        return
-    stream = _launch(
-        "fm_tp_finish_launch", valid.device, R, st["w"].data_ptr(),
-        st["st"].data_ptr(), st["sa"].data_ptr(), st["out"].data_ptr())
-    _count("LAUNCHES_TP_FINISH", stream)
 
 
 def tp_resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
@@ -302,9 +292,9 @@ def tp_resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
     row-sharded index (this rank's ``idx``, or a list of in-process
     shards): what resolve_rows_plain gives on the whole index, through
     walk.tp_walk_loop tile by tile up to ``nlive`` (walk.by_tile, as the
-    plain version tiles), srate + 2 kernel launches a tile on CUDA
-    tensors (``LAUNCHES_TP_WALK``: srate, ``LAUNCHES_TP_SA``: one,
-    ``LAUNCHES_TP_FINISH``: one), the plain steps on CPU ones.
+    plain version tiles), srate + 1 kernel launches a tile on CUDA
+    tensors (``LAUNCHES_TP_WALK``: srate, ``LAUNCHES_TP_SA``: one), the
+    plain steps on CPU ones.
     ``on_step(s, parts)`` sees each step's partials before their
     reduce."""
     shards = _shards(idx)
@@ -322,5 +312,5 @@ def tp_resolve_rows(idx, rows: torch.Tensor, valid: torch.Tensor,
     for sh in shards:
         _check_tp_index(sh, dev)
     return walk.by_tile(lambda r, v: walk.tp_walk_loop(
-        shards, r, v, _tp_walk_step, _tp_walk_finish, on_step),
+        shards, r, v, _tp_walk_step, on_step),
         rows, valid, nlive)

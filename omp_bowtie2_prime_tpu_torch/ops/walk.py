@@ -113,15 +113,16 @@ def tp_walk_state(R: int, device):
     (not valid). A walking lane has taken as many LF steps as the loop
     has applied, so only an ended lane keeps its count. Then two [R, 2]
     buffers of step partials (a step's in one while the next reads the
-    other), the SA word's partial and the offsets. ``w``, ``st`` and the
+    other) and the last step's partial of the offsets (``off``), which
+    its reduce turns into the offsets. ``w``, ``st`` and the step
     partials are padded to TP_PAD lanes (``rank.tp_buffer``), as the
-    kernel's bulk copies read them."""
+    kernels' bulk copies read them."""
     i64 = dict(dtype=torch.int64, device=device)
     return dict(w=rank.tp_buffer(R, **i64),
                 st=rank.tp_buffer(R, torch.uint8, device),
                 red=[rank.tp_buffer(R, torch.int64, device, 2)
                      for _ in range(2)],
-                sa=torch.empty(R, **i64), out=torch.empty(R, **i64))
+                off=torch.empty(R, **i64))
 
 
 def tp_walk_unpack(st):
@@ -138,17 +139,15 @@ def tp_walk_unpack(st):
 
 
 def _walk_apply(idx, st, part, s):
-    """Step s - 1's reduced walk partials applied to the walking lanes of
-    ``st``: a marked row ends its lane with its rank and s - 1 steps, the
-    others move to the row's LF."""
+    """(w, st) of ``st`` after step s - 1's reduced walk partials: a
+    walking lane whose row is marked ends with its rank and s - 1 steps,
+    the other walking lanes move to the row's LF."""
     walking = st["st"] == WALKING
     marked, r, nxt = rank.walk_unpack(idx, st["w"], part)
     hit = marked & walking
     ended = r | ((s - 1) << STEPS_SHIFT)
-    st["w"].copy_(torch.where(hit, ended, torch.where(walking, nxt,
-                                                      st["w"])))
-    st["st"].copy_(torch.where(hit, torch.full_like(st["st"], ENDED),
-                               st["st"]))
+    return (torch.where(hit, ended, torch.where(walking, nxt, st["w"])),
+            torch.where(hit, torch.full_like(st["st"], ENDED), st["st"]))
 
 
 def tp_walk_step_plain(idx, rows, valid, s, srate, st):
@@ -156,61 +155,59 @@ def tp_walk_step_plain(idx, rows, valid, s, srate, st):
     (what fm_tp_walk_step_kernel does for s < srate and fm_tp_sa_kernel
     for s == srate): step 0 starts every valid lane walking at its row;
     step s > 0 applies step s - 1's reduced (mark, rank, next row) to the
-    walking lanes (``_walk_apply``). Step s < srate then writes this
-    rank's ``owned_walk_partial`` of the rows still walking (0 elsewhere)
-    into st["red"][s % 2]; step srate writes its ``owned_sa_partial`` of
-    the ended lanes' ranks (0 elsewhere) into st["sa"]."""
+    walking lanes (``_walk_apply``). Step s < srate then writes the state
+    back and this rank's ``owned_walk_partial`` of the rows still walking
+    (0 elsewhere) into st["red"][s % 2]. Step srate writes no state back
+    (nothing reads it after) and writes this rank's partial of the
+    offsets into st["off"], whose sum over the group is an ended lane's
+    sa + steps and -1 for every other lane: the group's rank 0 gives an
+    ended lane's steps and -1 elsewhere (a dead lane, or one still
+    walking after srate steps), the owner of an ended lane's SA sample
+    row adds its word (``owned_sa_partial``: no rank owns a row past the
+    sample, and the sum is then the steps)."""
     if s == 0:
-        st["w"].copy_(rows)
-        st["st"].fill_(DEAD).masked_fill_(valid, WALKING)
+        w = rows
+        status = torch.full_like(st["st"], DEAD).masked_fill_(valid, WALKING)
     else:
-        _walk_apply(idx, st, st["red"][(s - 1) % 2], s)
+        w, status = _walk_apply(idx, st, st["red"][(s - 1) % 2], s)
     if s < srate:
-        walking = st["st"] == WALKING
-        part = rank.owned_walk_partial(idx, st["w"])
-        st["red"][s % 2].copy_(torch.where(walking[:, None], part,
-                                           torch.zeros_like(part)))
-    else:
-        ended = st["st"] == ENDED
-        part = rank.owned_sa_partial(idx, st["w"] & RANK_MASK)
-        st["sa"].copy_(torch.where(ended, part, torch.zeros_like(part)))
+        st["w"].copy_(w)
+        st["st"].copy_(status)
+        part = rank.owned_walk_partial(idx, w)
+        st["red"][s % 2].copy_(torch.where((status == WALKING)[:, None],
+                                           part, torch.zeros_like(part)))
+        return
+    ended = status == ENDED
+    part = rank.owned_sa_partial(idx, w & RANK_MASK)
+    part = torch.where(ended, part, torch.zeros_like(part))
+    if idx.tp.rank == 0:
+        part += torch.where(ended, w >> STEPS_SHIFT, torch.full_like(w, -1))
+    st["off"].copy_(part)
 
 
-def tp_walk_finish_plain(idx, valid, st):
-    """The offsets from the reduced SA words (fm_tp_finish_kernel): sa +
-    steps where a lane ended at a mark within srate steps (a DEAD lane,
-    not valid, never does), else -1."""
-    st["out"].copy_(torch.where(st["st"] == ENDED,
-                                st["sa"] + (st["w"] >> STEPS_SHIFT),
-                                torch.full_like(st["sa"], -1)))
-
-
-def tp_walk_loop(shards, rows, valid, step, finish, on_step=None):
+def tp_walk_loop(shards, rows, valid, step, on_step=None):
     """The walk on a row-sharded index: ``step(idx, rows, valid, s, srate,
-    state)`` for s = 0 .. srate and ``finish(idx, valid, state)`` on each
-    shard (``tp_walk_step_plain`` / ``tp_walk_finish_plain`` or kernel
-    launches), and after each step one ``rank.tp_reduce`` of its
-    partials: 16 B a walking row, 8 B an SA word (the JAX route reduces a
-    512 B record a row, a 1 KB row of the SA sample a lane). srate + 1
-    reduces whatever the data, so the ranks stay in lockstep.
-    ``shards``: this rank's index or in-process shards
+    state)`` for s = 0 .. srate on each shard (``tp_walk_step_plain`` or
+    kernel launches), and after each step one ``rank.tp_reduce`` of its
+    partials: 16 B a walking row, then 8 B a lane of the offsets (the JAX
+    route reduces a 512 B record a row, a 1 KB row of the SA sample a
+    lane). srate + 1 reduces whatever the data, so the ranks stay in
+    lockstep. ``shards``: this rank's index or in-process shards
     (parallel/tp_index.shard_views); ``on_step(s, parts)`` sees each
     step's partials before their reduce. Returns the first shard's
-    offsets (the same on all)."""
+    reduced last partials: the offsets (the same on all)."""
     srate = shards[0].srate
     count_steps(srate)
     states = [tp_walk_state(rows.shape[0], rows.device) for _ in shards]
     for s in range(srate + 1):
         for idx, st in zip(shards, states):
             step(idx, rows, valid, s, srate, st)
-        parts = [st["red"][s % 2] if s < srate else st["sa"]
+        parts = [st["red"][s % 2] if s < srate else st["off"]
                  for st in states]
         if on_step is not None:
             on_step(s, parts)
         rank.tp_reduce(shards, parts)
-    for idx, st in zip(shards, states):
-        finish(idx, valid, st)
-    return states[0]["out"]
+    return states[0]["off"]
 
 
 def tp_resolve_rows_plain(shards, rows, valid, nlive=None, on_step=None):
@@ -219,5 +216,5 @@ def tp_resolve_rows_plain(shards, rows, valid, nlive=None, on_step=None):
     shards)."""
     shards = shards if isinstance(shards, (list, tuple)) else [shards]
     return by_tile(lambda r, v: tp_walk_loop(
-        shards, r.to(torch.int64), v, tp_walk_step_plain,
-        tp_walk_finish_plain, on_step), rows, valid, nlive)
+        shards, r.to(torch.int64), v, tp_walk_step_plain, on_step),
+        rows, valid, nlive)

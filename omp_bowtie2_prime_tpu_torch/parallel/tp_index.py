@@ -6,8 +6,9 @@ row-wise across a mesh axis, so the genome's ceiling becomes the cards'
 combined memory rather than one card's. Queries stay lockstep-replicated
 on the ranks of a model group. Each LF step of the search and the walk
 is counted by the owner of its row's record, where the record lies, and
-one all_reduce over the group sums the owners' answers, 16 B a lane, 8 B
-an SA word (ops/seed_search.tp_search_loop, ops/walk.tp_walk_loop: a
+one all_reduce over the group sums the owners' answers, 16 B a lane, and
+8 B a lane of the walk's offsets, SA word and steps (ops/seed_search.
+tp_search_loop, ops/walk.tp_walk_loop: a
 kernel launch a step on the card, ops/fm_cuda.py); the JAX package sums
 the 512 B record itself, which the record-level ops of ops/rank.py
 (``_owner_gather``) still do. Compute is replicated, memory divided by

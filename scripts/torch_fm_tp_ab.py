@@ -10,13 +10,15 @@ within one call, in turns (parent, change, change, parent).
 ``gen`` writes phase 5's genome, index and reads into DIR
 (chip_smoke.make_data). ``kernels`` imports omp_bowtie2_prime_tpu_torch
 from TREE (this repo, or an unpacked ``git archive`` of another commit)
-and then this repo's chip_smoke.py, whose ``tp_hold`` holds TREE's
-K3a-tp, K3b-tp, K3b-tp-sa and K3b-tp-finish to their plain steps and
-times each one's launches on shard 0, L2-warm and cold, against the
-layout-free bound: on a random BWT of 3.1 G rows cut into 2 shards (2^18
-lanes of int64 22-mers read off it and the round's slots, then the
-aligner's shapes: int8 seeds at a round's chunk, a walk tile of
-walk.TILE rows), and on phase 5's index cut into 1, 2 and 4 (2^18 lanes).
+and then TREE's own chip_smoke.py (the step loops' signatures and the
+tp kernels are a tree's own: a tree before the walk's last step gave
+the offsets also has K3b-tp-finish), whose ``tp_hold`` holds TREE's tp
+kernels to their plain steps and times each one's launches on shard 0,
+L2-warm and cold, against the tree's layout-free bound: on a random BWT
+of 3.1 G rows cut into 2 shards (2^18 lanes of int64 22-mers read off
+it and the round's slots, then the aligner's shapes: int8 seeds at a
+round's chunk, a walk tile of walk.TILE rows), and on phase 5's index
+cut into 1, 2 and 4 (2^18 lanes).
 ``mesh`` runs TREE's own chip_smoke.py phase 13 (a) and (b)
 (``run_mesh``: NCCL at one rank, gloo at two, every rank on cuda:0)
 after the one-device aligns it holds them to, on fresh data of its own,
@@ -92,7 +94,7 @@ def kernels(tree, wd, each=False):
     from omp_bowtie2_prime_tpu_torch.parallel.tp_index import shard_views
     from omp_bowtie2_prime_tpu_torch.utils import dna
 
-    cs = _module(os.path.join(ROOT, "chip_smoke.py"), "chip_smoke")
+    cs = _module(os.path.join(tree, "chip_smoke.py"), "chip_smoke")
     if not cs.fm_cuda.__file__.startswith(tree):
         raise SystemExit("torch_fm_tp_ab: chip_smoke took another package")
     with open(os.path.join(wd, "data.json")) as f:

@@ -1165,21 +1165,21 @@ def _tp_held(kind, shards, *args):
     def grab(acc):
         return lambda i, parts: acc.append([p.clone() for p in parts])
 
-    names = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA",
-             "LAUNCHES_TP_FINISH")
+    names = ("LAUNCHES_TP_SEARCH", "LAUNCHES_TP_WALK", "LAUNCHES_TP_SA")
     n0 = [getattr(fm_cuda, x) for x in names]
     D = len(shards)
     if kind == "search":
         got = fm_cuda.tp_search_seeds(shards, *args, on_step=grab(kparts))
         want = seed_search.tp_search_seeds_plain(shards, *args,
                                                  on_step=grab(pparts))
-        n = [(len(kparts) + 1) * D, 0, 0, 0]
+        n = [(len(kparts) + 1) * D, 0, 0]
     else:
         got = (fm_cuda.tp_resolve_rows(shards, *args, on_step=grab(kparts)),)
         want = (walk.tp_resolve_rows_plain(shards, *args,
                                            on_step=grab(pparts)),)
-        # srate walk steps, the SA word and the finish a shard
-        n = [0, (len(kparts) - 1) * D, D, D]
+        # srate walk steps and the last (the SA word: the offsets'
+        # partials) a shard
+        n = [0, (len(kparts) - 1) * D, D]
     torch.cuda.synchronize()
     assert [getattr(fm_cuda, x) - a for x, a in zip(names, n0)] == n
     assert len(kparts) == len(pparts) > 0 or kind == "search"
@@ -1338,8 +1338,10 @@ def test_tp_kernels_tiles_and_ring(cuda, B):
     (700,001 lanes: ~2,700 tiles over at most the card's resident blocks,
     so every block's ring turns over several times and the last tile
     fills part of its stage), at D = 2, against the plain steps and the
-    whole-index kernels."""
-    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda
+    whole-index kernels; the walk's last step (K3b-tp-sa, which reads the
+    state through the same ring) partial for partial on each shard, and
+    only rank 0 nonzero where a lane has not ended."""
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
 
     text, fm, whole, shards = _tp_setup(cuda, 2)
     rng = np.random.default_rng(B)
@@ -1351,6 +1353,17 @@ def test_tp_kernels_tiles_and_ring(cuda, B):
     rows = torch.from_numpy(rng.integers(0, fm.nrows, B)).to(cuda)
     off = _tp_held("walk", shards, rows, valid)[0]
     assert torch.equal(off, fm_cuda.resolve_rows(whole, rows, valid))
+    last = {}
+    for name, fn in (("kernel", fm_cuda.tp_resolve_rows),
+                     ("plain", walk.tp_resolve_rows_plain)):
+        fn(shards, rows, valid, on_step=lambda s, p, n=name: last.update(
+            {n: [x.clone() for x in p]}))
+    torch.cuda.synchronize()
+    for k, p in zip(last["kernel"], last["plain"]):
+        assert k.shape == (B,) and torch.equal(k, p)
+    assert torch.equal(last["kernel"][0] + last["kernel"][1], off)
+    assert (last["kernel"][0][off < 0] == -1).all()
+    assert (last["kernel"][1][off < 0] == 0).all()
 
 
 def _plain_trace(whole, seeds, valid, sub_ftab, rows):
@@ -1464,11 +1477,12 @@ def test_tp_search_negative_and_raw_bases(cuda, dtype, L):
 @pytest.mark.parametrize("srate", [8, 16])
 def test_tp_walk_state_read_back(cuda, srate):
     """The 9 B walk state (a row or an ended lane's rank | steps << 48,
-    and a status byte) as the SA and finish kernels read it back: rows
-    whose walk ends at the last step, steps = srate - 1 (the SA kernel's
-    apply ends them), with dead lanes and lanes that end earlier; the
-    state after the loop decodes to the plain steps' and the offsets are
-    the whole index's."""
+    and a status byte) as the walk's last step (K3b-tp-sa) reads it back:
+    rows whose walk ends at the last step, steps = srate - 1 (the last
+    step's apply ends them: they still walk in the state it reads), with
+    dead lanes and lanes that end earlier. The state it reads is the
+    plain steps', it writes none back, and the offsets are the whole
+    index's, srate - 1 steps past a sample on the lanes that end there."""
     from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, walk
 
     text, fm, whole, shards = _tp_setup(cuda, 2, srate)
@@ -1482,24 +1496,32 @@ def test_tp_walk_state_read_back(cuda, srate):
     valid = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
     states = {}
 
-    def keep(name, finish):
-        def fn(idx, v, st):
-            finish(idx, v, st)
-            if idx is shards[0]:
+    def keep(name, step):
+        def fn(idx, r, v, s, srate_, st):
+            mine = s == srate_ and idx is shards[0]
+            if mine:
                 states[name] = {k: st[k].clone() for k in ("w", "st")}
+            step(idx, r, v, s, srate_, st)
+            if mine:
+                states[name + " after"] = {k: st[k].clone()
+                                           for k in ("w", "st")}
         return fn
 
-    got = walk.tp_walk_loop(shards, rows, valid, fm_cuda._tp_walk_step,
-                            keep("kernel", fm_cuda._tp_walk_finish))
-    want = walk.tp_walk_loop(shards, rows, valid, walk.tp_walk_step_plain,
-                             keep("plain", walk.tp_walk_finish_plain))
+    got = walk.tp_walk_loop(shards, rows, valid,
+                            keep("kernel", fm_cuda._tp_walk_step))
+    want = walk.tp_walk_loop(shards, rows, valid,
+                             keep("plain", walk.tp_walk_step_plain))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, fm_cuda.resolve_rows(whole, rows, valid))
     for k in ("w", "st"):
         assert torch.equal(states["kernel"][k], states["plain"][k])
-    _row, steps, _rnk, done = walk.tp_walk_unpack(states["kernel"])
+        assert torch.equal(states["kernel after"][k], states["kernel"][k])
+    _row, _steps, _rnk, done = walk.tp_walk_unpack(states["kernel"])
     n = last.shape[0]
-    assert (done[:n] == valid[:n]).all()
-    assert (steps[:n][valid[:n]] == srate - 1).all()
+    v = valid[:n]
+    assert n > 1000 and not done[:n].any()
+    assert (states["kernel"]["st"][:n][v] == walk.WALKING).all()
+    assert (got[:n][v] % srate == srate - 1).all()
+    assert (got[:n][~v] == -1).all()
     assert (states["kernel"]["st"][~valid] == walk.DEAD).all()

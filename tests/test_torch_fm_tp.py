@@ -10,8 +10,11 @@ whole, no copy), whose partials sum in process. The summed partials
 equal the whole index's occ / walk_step / sa_lookup on its rows, and the
 record route lane for lane on every row, garbage ones (negative, past
 the padded end) too, on records with bit 31 set as well; the step loops
-equal the whole index's search and walk; every reduce is 16 B a search
-lane, 16 B a walk row, 8 B an SA word. Two gloo worlds of fresh
+equal the whole index's search and walk (and the JAX package's
+resolve_rows on its make_tp_mesh); every reduce is 16 B a search lane,
+16 B a walk row, 8 B a lane of the walk's last step, whose partials
+(group rank 0: an ended lane's steps, else -1; the owner of its SA
+sample row: the word) sum to the offsets. Two gloo worlds of fresh
 processes (tests/torch_dist_workers.py ``task_fm_tp``: model=2, and
 data=2 x model=2), started once for the module, run the step loops
 against the record route (results and reduce counts) and aligners on
@@ -24,6 +27,8 @@ import dataclasses
 import os
 import pickle
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,9 +36,12 @@ import torch
 from omp_bowtie2_prime_tpu.index.builder import (
     build_index_from_text as jax_build)
 from omp_bowtie2_prime_tpu.index.fasta import join_references as jax_join
+from omp_bowtie2_prime_tpu.index.format import DeviceIndex
 from omp_bowtie2_prime_tpu.io.fastq import Read as JaxRead
 from omp_bowtie2_prime_tpu.models.aligner import TPUAligner
 from omp_bowtie2_prime_tpu.models.paired import PairedAligner as JaxPaired
+from omp_bowtie2_prime_tpu.ops import walk as jax_walk
+from omp_bowtie2_prime_tpu.parallel import tp_index as jax_tp
 from omp_bowtie2_prime_tpu.parallel.tp_index import (
     make_tp_mesh as jax_make_tp_mesh)
 from omp_bowtie2_prime_tpu_torch.index.builder import build_index_from_text
@@ -123,7 +131,8 @@ def data(tmp_path_factory):
     inp = dict(fm=fm, seeds=_seeds(text, rng, S),
                valid=rng.random(S) < 0.95,
                lseed=rng.integers(0, 1 << 32, S),
-               rows=rows, rvalid=np.ones(len(rows), bool), reads=reads,
+               rows=rows, rvalid=np.ones(len(rows), bool),
+               wvalid=rng.random(len(rows)) < 0.9, reads=reads,
                pairs=[p[:5] for p in planted])
     handles = []
     for world in WORLDS:
@@ -174,6 +183,44 @@ def worlds(data):
 
 def _index(data, which):
     return GpuIndex.from_host(data[which], "cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_index(data):
+    """The JAX package's device index of the same genome."""
+    return DeviceIndex.from_host(jax_build(*jax_join(
+        data["names"], [s.copy() for s in data["seqs"]]), ftab_k=8))
+
+
+def _jax_tp_walk(jidx, d, rows, valid):
+    """The JAX package's resolve_rows on its make_tp_mesh(d): shard_map
+    over the model axis, each step's record and the SA row psum'd."""
+    from jax.sharding import PartitionSpec as P
+
+    mesh = jax_make_tp_mesh(d)
+    placed = jax_tp.shard_index(jidx, mesh)
+    fn = jax.jit(jax.shard_map(
+        jax_walk.resolve_rows, mesh=mesh,
+        in_specs=(jax_tp._index_specs(placed, "model"), P(), P()),
+        out_specs=P(), check_vma=False))
+    return np.asarray(fn(placed, jnp.asarray(rows, jnp.int32),
+                         jnp.asarray(valid))).astype(np.int64)
+
+
+def _whole_walk(whole, rows):
+    """(steps, rank, done) of every lane after the whole index's srate
+    walk steps from ``rows``, as _walk_plain keeps them."""
+    row, steps, rnk = (rows.clone(), torch.zeros_like(rows),
+                       torch.zeros_like(rows))
+    done = torch.zeros(rows.shape, dtype=torch.bool)
+    for _ in range(whole.srate):
+        marked, r, nrow = trank.walk_step(whole, row)
+        hit = marked & ~done
+        rnk = torch.where(hit, r, rnk)
+        done = done | hit
+        row = torch.where(done, row, nrow)
+        steps = torch.where(done, steps, steps + 1)
+    return steps, rnk, done
 
 
 def _record_path(shards, table, nloc, i):
@@ -316,6 +363,103 @@ def test_step_loops_equal_the_whole_index(data, d):
     assert (want[2 * tile :] == -1).all()
 
 
+@pytest.mark.parametrize("which", ["fm", "fm31"])
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_walk_offsets_equal_jax_tp_mesh_and_the_whole_index(data, jax_index,
+                                                            d, which):
+    """The walk's step loop over D in-process shards, whose last step's
+    partials sum to the offsets: dead lanes, lanes a mark ends at the
+    last step's apply (srate - 1 steps), rows no rank owns (negative).
+    On the genome's index the offsets equal the whole index's plain walk
+    on its rows and the JAX package's resolve_rows on make_tp_mesh(D) on
+    every row, bit for bit; on its bit-31 twin every marked rank passes
+    the SA sample (bit 31 set), no rank owns its row and an ended lane's
+    offset is its steps, as the whole index's walk counts them."""
+    whole = _index(data, which)
+    shards = shard_views(whole, d)
+    srate = whole.srate
+    rng = np.random.default_rng(200 + d)
+    cand = torch.from_numpy(rng.integers(0, data["fm"].nrows, 20_000))
+    steps, _rnk, done = _whole_walk(whole, cand)
+    end_last = cand[done & (steps == srate - 1)][:500]
+    garbage = torch.tensor([-1, -2, -1023, -1024, -1025, -50_000])
+    rows = torch.cat([end_last, cand[:2500], garbage])
+    valid = torch.from_numpy(rng.random(len(rows)) < 0.9)
+    got = fm_cuda.tp_resolve_rows(shards, rows, valid)
+    real = rows >= 0
+    if which == "fm":
+        want = walk.resolve_rows_plain(whole, rows, valid)
+        assert torch.equal(got[real], want[real])
+        jax_off = _jax_tp_walk(jax_index, d, rows.numpy(), valid.numpy())
+        assert np.array_equal(got.numpy(), jax_off)
+    else:
+        steps, rnk, done = _whole_walk(whole, rows)
+        ended = valid & done & real
+        assert int(rnk[ended].min()) >= 1 << 31
+        assert torch.equal(got[real], torch.where(ended, steps, -1)[real])
+    n = end_last.shape[0]
+    v = valid[:n]
+    assert n > 100 and (got[:n][v] % srate == srate - 1).all()
+    assert (got[~valid] == -1).all()
+    assert int((got[real & valid] >= 0).sum()) > len(rows) // 2
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_last_step_partials_rank0_and_owner(data, d):
+    """The walk's last step (s == srate) on made-up states over D shards:
+    lanes ended with a rank inside the SA sample, in its padding and
+    past it (2^31 and up: no rank owns the row); lanes a mark ends at
+    this step's apply; lanes still walking after it; dead lanes. Group
+    rank 0 alone gives -1 for a lane that has not ended and an ended
+    lane's steps; the owner of an ended lane's SA row alone adds its
+    word. The sum is sa + steps, the steps where no rank holds the row,
+    -1 elsewhere; no state is written back."""
+    whole = _index(data, "fm")
+    shards = shard_views(whole, d)
+    srate, nloc = whole.srate, shards[0].tp.nsa_loc
+    nsa = whole.sa_sample.shape[0] * 128
+    rng = np.random.default_rng(300 + d)
+    n = 96
+    far = torch.tensor([nsa, nsa + 127, d * nloc * 128, 1 << 31,
+                        (1 << 31) + 5, (1 << 32) - 1, 1 << 33])
+    rnk = torch.cat([torch.from_numpy(rng.integers(0, nsa, n)), far])
+    R = 4 * len(rnk)
+    kind = torch.arange(R) // len(rnk)  # ended, ends now, walks on, dead
+    rnk = rnk.repeat(4)
+    steps = torch.from_numpy(rng.integers(0, srate - 1, R))
+    rows = torch.from_numpy(rng.integers(0, data["fm"].nrows, R))
+    red = torch.stack([torch.where(kind == 1, (1 << trank.WALK_MARK) | rnk,
+                                   (2 << trank.WALK_BASE) | rnk),
+                       torch.from_numpy(rng.integers(0, 1000, R))], 1)
+    status = torch.tensor([walk.ENDED, walk.WALKING, walk.WALKING,
+                           walk.DEAD], dtype=torch.uint8)[kind]
+    w = torch.where(kind == 0, rnk | (steps << walk.STEPS_SHIFT), rows)
+    parts = []
+    for sh in shards:
+        st = walk.tp_walk_state(R, "cpu")
+        st["w"].copy_(w)
+        st["st"].copy_(status)
+        st["red"][(srate - 1) % 2].copy_(red)
+        walk.tp_walk_step_plain(sh, rows, status != walk.DEAD, srate, srate,
+                                st)
+        assert torch.equal(st["w"], w) and torch.equal(st["st"], status)
+        parts.append(st["off"].clone())
+    ended = kind <= 1
+    nsteps = torch.where(kind == 0, steps, srate - 1)
+    held = ended & (rnk < nsa)
+    word = whole.sa_sample.reshape(-1)[torch.where(held, rnk, 0)]
+    owner = rnk // 128 // nloc
+    for r, p in enumerate(parts):
+        want = torch.where(held & (owner == r), word, 0)
+        if r == 0:
+            want = want + torch.where(ended, nsteps, -1)
+        assert torch.equal(p, want), r
+    total = sum(parts)
+    assert torch.equal(total, torch.where(
+        ended, torch.where(held, word, 0) + nsteps, -1))
+    assert int(held.sum()) > 0 and int((ended & ~held).sum()) > 0
+
+
 def test_bit31_search_loop_equals_the_whole_index(data):
     """On records with bit 31 set in every A count, the search's step
     loop over 2 shards equals search_seeds_plain on the whole index."""
@@ -367,6 +511,30 @@ def test_gloo_reduce_widths(data, worlds, world):
         rec = set(got["records"][2])
         assert ("torch.int32", (2 * S, 128)) in rec
         assert ("torch.int64", (2 * S, 128)) in rec
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_gloo_walk_last_partials_sum_to_the_offsets(data, worlds, world):
+    """Every rank of a gloo world (model=2): the walk of the rows (real
+    and garbage, a tenth dead) through the step loop equals the record
+    route's (resolve_rows_plain on the shard) on every row and the whole
+    index's plain walk on the real ones; its last step's partial, before
+    the reduce, is -1 on model rank 0 and 0 on model rank 1 wherever a
+    lane has not ended."""
+    one = GpuIndex.from_host(data["fm"], "cpu")
+    rows, wvalid = (torch.from_numpy(data[k]) for k in ("rows", "wvalid"))
+    real = slice(0, len(rows) - data["ngarbage"])
+    whole = walk.resolve_rows_plain(one, rows[real], wvalid[real]).numpy()
+    ranks = set()
+    for rank, got in enumerate(worlds["ranks"][world]):
+        w = got["walk_last"]
+        assert np.array_equal(w["off"], w["record"]), rank
+        assert np.array_equal(w["off"][real], whole), rank
+        left = w["off"] < 0
+        assert left.any() and (~left).any() and (~wvalid.numpy() <= left).all()
+        assert (w["part"][left] == (-1 if w["model_rank"] == 0 else 0)).all()
+        ranks.add(w["model_rank"])
+    assert ranks == {0, 1}
 
 
 @pytest.mark.parametrize("mode", ["e2e", "local"])
@@ -433,34 +601,45 @@ def test_packed_state_decodes_at_every_step(data, d):
     assert torch.equal(short, seeds[:, L - 1] < 0)
 
     rows = torch.from_numpy(data["rows"][:2000])
-    walked = []
+    walked, last = [], []
 
     def walk_step(idx, r, v, s, srate, st):
         walk.tp_walk_step_plain(idx, r, v, s, srate, st)
-        if idx is shards[0]:
+        if idx is shards[0] and s < srate:
             walked.append(walk.tp_walk_unpack(st) + (st["st"].clone(),))
 
     rvalid = torch.from_numpy(rng.random(len(rows)) < 0.9)
-    walk.tp_walk_loop(shards, rows, rvalid, walk_step,
-                      walk.tp_walk_finish_plain)
+    off = walk.tp_walk_loop(
+        shards, rows, rvalid, walk_step,
+        on_step=lambda s, p: last.append([x.clone() for x in p]))
     row = rows.clone()
     steps, rnk = torch.zeros_like(row), torch.zeros_like(row)
     done = torch.zeros_like(rvalid)
-    assert len(walked) == whole.srate + 1
+    assert len(walked) == whole.srate and len(last) == whole.srate + 1
     for s in range(whole.srate + 1):
-        g_row, g_steps, g_rnk, g_done, status = walked[s]
         v = rvalid
-        assert torch.equal(g_done[v], done[v])
-        walking = v & ~done
-        assert torch.equal(g_row[walking], row[walking])
-        assert torch.equal(g_steps[v & done], steps[v & done])
-        assert torch.equal(g_rnk[v & done], rnk[v & done])
-        assert (status[~v] == walk.DEAD).all()
-        assert (status[walking] == walk.WALKING).all()
+        if s < whole.srate:
+            g_row, g_steps, g_rnk, g_done, status = walked[s]
+            assert torch.equal(g_done[v], done[v])
+            walking = v & ~done
+            assert torch.equal(g_row[walking], row[walking])
+            assert torch.equal(g_steps[v & done], steps[v & done])
+            assert torch.equal(g_rnk[v & done], rnk[v & done])
+            assert (status[~v] == walk.DEAD).all()
+            assert (status[walking] == walk.WALKING).all()
         marked, r, nrow = trank.walk_step(whole, row)
         hit = marked & ~done & v
         rnk = torch.where(hit, r, rnk)
         done = done | hit
         row = torch.where(done, row, nrow)
         steps = torch.where(done, steps, steps + 1)
-    assert int(done.sum()) > len(rows) // 2
+    # the last step applied the srate-th walk step and wrote the offsets'
+    # partials: group rank 0 steps or -1, the owner of the SA row its word
+    ended = v & done
+    assert int(ended.sum()) > len(rows) // 2
+    assert torch.equal(off, torch.where(
+        ended, trank.sa_lookup(whole, rnk) + steps, torch.full_like(off, -1)))
+    assert torch.equal(off, walk.resolve_rows_plain(whole, rows, rvalid))
+    parts = last[-1]
+    assert torch.equal(parts[0][~ended], torch.full_like(off, -1)[~ended])
+    assert all(int(p[~ended].abs().sum()) == 0 for p in parts[1:])

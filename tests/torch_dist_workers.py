@@ -253,15 +253,14 @@ def task_tp_cuda(inp, rank, world):
     rank_ops.REDUCES = sw_cuda.LAUNCHES = 0
     fm_cuda.LAUNCHES_SEARCH = fm_cuda.LAUNCHES_WALK = 0
     fm_cuda.LAUNCHES_TP_SEARCH = fm_cuda.LAUNCHES_TP_WALK = 0
-    fm_cuda.LAUNCHES_TP_SA = fm_cuda.LAUNCHES_TP_FINISH = 0
+    fm_cuda.LAUNCHES_TP_SA = 0
     res = [res_tuple(r) for r in al.align_batch(_reads(inp["reads"]))]
     return dict(results=res, reduces=rank_ops.REDUCES,
                 launches=sw_cuda.LAUNCHES, rows=al.idx.blocks.shape[0],
                 device=str(al.idx.blocks.device),
                 fm_launches=fm_cuda.LAUNCHES_SEARCH + fm_cuda.LAUNCHES_WALK,
                 tp_launches=(fm_cuda.LAUNCHES_TP_SEARCH,
-                             fm_cuda.LAUNCHES_TP_WALK, fm_cuda.LAUNCHES_TP_SA,
-                             fm_cuda.LAUNCHES_TP_FINISH))
+                             fm_cuda.LAUNCHES_TP_WALK, fm_cuda.LAUNCHES_TP_SA))
 
 
 def pair_reads(spec, cls):
@@ -552,7 +551,9 @@ def task_fm_tp(inp, rank, world):
     through the JAX package's record route (search_seeds_plain,
     sample_rows, resolve_rows_plain on the shard), each with its reduces'
     count and every reduce's dtype and shape (all_reduce wrapped); the
-    walk of rows past the padded end and negative ones through both;
+    walk of rows past the padded end and negative ones through both, and
+    with dead lanes (wvalid) through both with the step loop's last
+    partials (this rank's, before their reduce: the offsets' parts);
     then aligners end to end and --local on the reads and the pairs."""
     import collections
 
@@ -562,14 +563,15 @@ def task_fm_tp(inp, rank, world):
     from omp_bowtie2_prime_tpu_torch.io.fastq import Read
     from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
     from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
+    from omp_bowtie2_prime_tpu_torch.ops import fm_cuda, seed_search, walk
     from omp_bowtie2_prime_tpu_torch.ops import rank as rank_ops
-    from omp_bowtie2_prime_tpu_torch.ops import seed_search, walk
     from omp_bowtie2_prime_tpu_torch.parallel.tp_index import (
         make_tp_mesh, shard_index)
 
     fm = inp["fm"]
-    seeds, valid, lseed, rows, rvalid = (torch.from_numpy(inp[k]) for k in (
-        "seeds", "valid", "lseed", "rows", "rvalid"))
+    seeds, valid, lseed, rows, rvalid, wvalid = (
+        torch.from_numpy(inp[k]) for k in ("seeds", "valid", "lseed", "rows",
+                                           "rvalid", "wvalid"))
     mesh = make_tp_mesh(2, n_data=world // 2, device_type="cpu")
     idx = shard_index(fm, mesh)
     shapes = []
@@ -604,6 +606,12 @@ def task_fm_tp(inp, rank, world):
             nblk_loc=idx.tp.nblk_loc)
     finally:
         dist.all_reduce = real
+    last = []
+    off = fm_cuda.tp_resolve_rows(
+        idx, rows, wvalid, on_step=lambda s, p: last.append(p[0].clone()))
+    out["walk_last"] = dict(
+        off=off.numpy(), part=last[-1].numpy(), model_rank=idx.tp.rank,
+        record=walk.resolve_rows_plain(idx, rows, wvalid).numpy())
     pkg = "omp_bowtie2_prime_tpu_torch"
     al = TorchAligner(fm, device="cpu", mesh=mesh)
     sc, opts = local_config(pkg)
