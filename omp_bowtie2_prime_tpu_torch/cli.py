@@ -674,6 +674,10 @@ def run_align(args):
 
         return run_pipeline(batches(), None, emit, align_fns=align_fns)
 
+    # -t: the timers trace the run too (collections, the align thread's
+    # CPU, the counts), reported beside the phases
+    for al in aligners:
+        al.timers.on = args.time
     t0 = time.time()
     singles = [_qc_wrap(al.align_batch, args.qc_filter) for al in aligners]
     if single_src is not None:
@@ -723,6 +727,8 @@ def run_align(args):
                            [lambda b, k=k: align_mixed(k, b)
                             for k in range(len(pals))], emit_mixed)
     dt = time.time() - t0
+    for al in aligners:
+        al.timers.on = False
     if emitter is not None:
         emitter.stop()  # the last metrics line; closes the file
     print(w.summary.render(), file=sys.stderr)

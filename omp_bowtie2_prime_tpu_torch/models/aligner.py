@@ -765,6 +765,7 @@ class TorchAligner:
         L = lmax or self.opts.l_max
         W = cols or self.opts.dp_cols
         n = len(problems)
+        self.timers.count("count.dp_problems", n)
         rdlens = self._mat_lens[problems.src // 2].astype(np.int32)
         chunk = sw_cuda.max_batch(L, W + 1, local, self.device.type)
         wmat = self._dev_mat.shape[1]
@@ -883,19 +884,22 @@ class TorchAligner:
         no collective), the blocks' results gathered so that every rank
         returns the whole batch's in input order (timed ``dataGather``).
         ``align_batch`` and ``PairedAligner.align_pairs`` both run
-        through it."""
-        pl = self.placer
-        if pl is None:
-            with self._on_stream():
-                return fn(items)
-        wait_turn()
-        with pl.lock, self._on_stream():
-            if pl.n_data == 1:
-                return fn(items)
-            mine = pl.put_batch(items)
-            part = fn(mine) if len(mine) else []
-            with self.timers.phase("dataGather"):
-                return pl.gather_batch(part)
+        through it. While the timers are on, the batch's wall and this
+        thread's CPU seconds are recorded (``count.align_cpu``)."""
+        pl, tm = self.placer, self.timers
+        with (tm.thread_cpu("count.align_cpu", len(items)) if tm.on
+              else contextlib.nullcontext()):
+            if pl is None:
+                with self._on_stream():
+                    return fn(items)
+            wait_turn()
+            with pl.lock, self._on_stream():
+                if pl.n_data == 1:
+                    return fn(items)
+                mine = pl.put_batch(items)
+                part = fn(mine) if len(mine) else []
+                with self.timers.phase("dataGather"):
+                    return pl.gather_batch(part)
 
     def _align_batch(self, reads, prebuilt, predisp, minscs, next_cb):
         n = len(reads)
@@ -905,7 +909,8 @@ class TorchAligner:
                 self.build_read_matrices(reads)
         results: list = [None] * n
         if minscs is None:
-            minscs = self.min_scores(reads)
+            with self.timers.phase("minScores"):
+                minscs = self.min_scores(reads)
         fired = [False, False]
 
         def once(i):
@@ -932,33 +937,38 @@ class TorchAligner:
                 after_dp=after_dp if roundi == 0 else None, columnar=True)
             if roundi == 0:
                 fire_both()  # round 0 queued no DP
-            self.metrics.add(candidates=sum(len(c) for c in cands)
-                             + (len(table) if table is not None else 0))
+            with self.timers.phase("roundSelect"):
+                self.metrics.add(candidates=sum(len(c) for c in cands)
+                                 + (len(table) if table is not None else 0))
             with self.timers.phase("finishRead"):
                 self._finalize_unpaired(reads, minscs, cands, results,
                                         table=table)
-            active = [ri for ri in active if results[ri] is None]
-            sb = self.opts.seed_boost
-            if sb > 0:
-                active = [
-                    ri for ri in active
-                    if self._hit_nonz[ri] == 0
-                    or self._hit_elts[ri] // self._hit_nonz[ri] >= sb
-                ]
-        rescue = ([ri for ri in range(n) if results[ri] is None]
-                  if self.opts.upfront_rescue else [])
+            with self.timers.phase("roundSelect"):
+                active = [ri for ri in active if results[ri] is None]
+                sb = self.opts.seed_boost
+                if sb > 0:
+                    active = [
+                        ri for ri in active
+                        if self._hit_nonz[ri] == 0
+                        or self._hit_elts[ri] // self._hit_nonz[ri] >= sb
+                    ]
+        with self.timers.phase("roundSelect"):
+            rescue = ([ri for ri in range(n) if results[ri] is None]
+                      if self.opts.upfront_rescue else [])
         if rescue:
             cands, table = self.collect_candidates(reads, minscs, rescue, -1,
                                                    columnar=True)
-            self.metrics.add(candidates=sum(len(c) for c in cands)
-                             + (len(table) if table is not None else 0))
+            with self.timers.phase("roundSelect"):
+                self.metrics.add(candidates=sum(len(c) for c in cands)
+                                 + (len(table) if table is not None else 0))
             with self.timers.phase("finishRead"):
                 self._finalize_unpaired(reads, minscs, cands, results,
                                         table=table)
         fire_both()  # no round ran (no reads)
-        for i in range(n):
-            if results[i] is None:
-                results[i] = AlnResult(status="unaligned")
+        with self.timers.phase("roundSelect"):
+            for i in range(n):
+                if results[i] is None:
+                    results[i] = AlnResult(status="unaligned")
         return results
 
     def build_read_matrices(self, reads) -> None:
@@ -1009,7 +1019,7 @@ class TorchAligner:
         self._fc_cache = None
         self._batch_reads = reads
         pk_fw = mat_r[0::2].astype(np.int64) | (mat_p[0::2].astype(np.int64) << 4)
-        with self._on_stream():
+        with self._on_stream(), self.timers.phase("buildMatrices.put"):
             self._dev_mat = expand_oriented_mat(
                 self._to_dev(pk_fw), self._to_dev(clipped))
 
@@ -1085,11 +1095,12 @@ class TorchAligner:
     def _collect_round(self, n, minscs, active, roundi, columnar, predisp,
                        after_dp):
         o = self.opts
-        empty = ([{} for _ in range(n)], None)
-        self._hit_nonz = np.zeros(n, np.int64)
-        self._hit_elts = np.zeros(n, np.int64)
-        lens_all, mgn_all, mgw_all, thr_all, read_ok = \
-            self._frame_consts(minscs)
+        with self.timers.phase("frameConsts"):
+            empty = ([{} for _ in range(n)], None)
+            self._hit_nonz = np.zeros(n, np.int64)
+            self._hit_elts = np.zeros(n, np.int64)
+            lens_all, mgn_all, mgw_all, thr_all, read_ok = \
+                self._frame_consts(minscs)
 
         with self.timers.phase("searchResolve"):
             if predisp is None:
@@ -1097,6 +1108,8 @@ class TorchAligner:
             else:
                 out = (predisp if isinstance(predisp, str)
                        else self._grid_collect(predisp))
+        # 1: the grid overflowed and the host path reruns the round
+        self.timers.count("count.seed_round", int(out is None))
         if isinstance(out, str):
             return empty
         if out is not None:
@@ -1222,21 +1235,25 @@ class TorchAligner:
         # --overhang, off a reference's end) leave the joined text: see
         # _run_bridge
         bridge_cands = []
-        bi = self._bridge_problem_indices(problems, mgn_all)
+        with self.timers.phase("dpSelect"):
+            bi = self._bridge_problem_indices(problems, mgn_all)
+            if len(bi):
+                bridge_probs = problems.take(bi)
+                keep = np.ones(len(problems), bool)
+                keep[bi] = False
+                problems = problems.take(np.flatnonzero(keep))
         if len(bi):
-            bridge_probs = problems.take(bi)
-            keep = np.ones(len(problems), bool)
-            keep[bi] = False
-            problems = problems.take(np.flatnonzero(keep))
             bridge_cands = self._run_bridge(minscs, bridge_probs, mgn_all)
             if not len(problems):
-                cands = [{} for _ in range(n)]
-                for ri, key, cand in bridge_cands:
-                    if key not in cands[ri]:
-                        cands[ri][key] = cand
+                with self.timers.phase("bridgeCands"):
+                    cands = [{} for _ in range(n)]
+                    for ri, key, cand in bridge_cands:
+                        if key not in cands[ri]:
+                            cands[ri][key] = cand
                 return cands, None
-        lens_p = self._mat_lens[problems.src // 2]
-        irr_mask = (problems.wlen > o.dp_cols) | (lens_p > o.l_max)
+        with self.timers.phase("dpSelect"):
+            lens_p = self._mat_lens[problems.src // 2]
+            irr_mask = (problems.wlen > o.dp_cols) | (lens_p > o.l_max)
         if not irr_mask.any():
             with self.timers.phase("extendDP"):
                 st_main = self._dispatch_dp_bt(problems)
@@ -1253,17 +1270,19 @@ class TorchAligner:
             # rows of a read and the column tiles of a window, so a
             # shared shape costs scratch, not time; on the CPU the plain
             # version computes the whole shape, hence the groups)
-            self.metrics.add(dps_irregular=int(irr_mask.sum()))
-            n_all = len(problems)
-            best = np.full(n_all, sw.NEG, np.int64)
-            bestcol = np.zeros(n_all, np.int32)
-            startcols = np.zeros(n_all, np.int32)
-            ops = [None] * n_all
-            rows = ((np.zeros(n_all, np.int32), np.zeros(n_all, np.int32))
-                    if o.local else None)
-            group = np.ceil(np.log2(np.maximum(lens_p, 1))).astype(np.int64)
-            group[lens_p <= o.l_max] = 0  # short reads, wide windows
-            group[~irr_mask] = -1  # the hot shape
+            with self.timers.phase("dpSelect"):
+                self.metrics.add(dps_irregular=int(irr_mask.sum()))
+                n_all = len(problems)
+                best = np.full(n_all, sw.NEG, np.int64)
+                bestcol = np.zeros(n_all, np.int32)
+                startcols = np.zeros(n_all, np.int32)
+                ops = [None] * n_all
+                rows = ((np.zeros(n_all, np.int32),
+                         np.zeros(n_all, np.int32)) if o.local else None)
+                group = np.ceil(np.log2(np.maximum(lens_p, 1))).astype(
+                    np.int64)
+                group[lens_p <= o.l_max] = 0  # short reads, wide windows
+                group[~irr_mask] = -1  # the hot shape
             states = []
             with self.timers.phase("extendDP"):
                 for g in np.unique(group).tolist():
@@ -1292,28 +1311,31 @@ class TorchAligner:
         # or -k/-a enumeration); results equal an always-wide pass
         multi = o.allhits or o.khits > 1
         ri_arr = problems.ri
-        thr_p = thr_all[ri_arr]
-        esc = np.flatnonzero(
-            (mgw_all[ri_arr] > mgn_all[ri_arr])
-            & (thr_p >= minscs[ri_arr])
-            & ((best <= thr_p) | multi)
-        )
+        with self.timers.phase("wideFrame"):
+            thr_p = thr_all[ri_arr]
+            esc = np.flatnonzero(
+                (mgw_all[ri_arr] > mgn_all[ri_arr])
+                & (thr_p >= minscs[ri_arr])
+                & ((best <= thr_p) | multi)
+            )
+            if len(esc):
+                mg_w = mgw_all[ri_arr[esc]].astype(np.int64)
+                ws = np.maximum(0, problems.diag[esc] - mg_w)
+                we = np.minimum(
+                    self.fm.n,
+                    problems.diag[esc]
+                    + lens_all[ri_arr[esc]].astype(np.int64) + mg_w,
+                )
+                wide_probs = Problems(problems.src[esc], ws, we - ws,
+                                      problems.diag[esc])
+                wcols, wlmax = self._launch_shape(wide_probs.wlen,
+                                                  lens_p[esc])
+                self.metrics.add(
+                    dps_wide=len(esc),
+                    dp_cells=int((lens_p[esc].astype(np.int64)
+                                  * wide_probs.wlen).sum()),
+                )
         if len(esc):
-            mg_w = mgw_all[ri_arr[esc]].astype(np.int64)
-            ws = np.maximum(0, problems.diag[esc] - mg_w)
-            we = np.minimum(
-                self.fm.n,
-                problems.diag[esc] + lens_all[ri_arr[esc]].astype(np.int64)
-                + mg_w,
-            )
-            wide_probs = Problems(problems.src[esc], ws, we - ws,
-                                  problems.diag[esc])
-            wcols, wlmax = self._launch_shape(wide_probs.wlen, lens_p[esc])
-            self.metrics.add(
-                dps_wide=len(esc),
-                dp_cells=int((lens_p[esc].astype(np.int64)
-                              * wide_probs.wlen).sum()),
-            )
             with self.timers.phase("extendDPWide"):
                 st_w = self._dispatch_dp_bt(wide_probs, cols=wcols,
                                             lmax=wlmax)
@@ -1321,19 +1343,22 @@ class TorchAligner:
                 after_dp[1]()  # the next batch's round 0 after it
             with self.timers.phase("extendDPWide"):
                 b, bc, op, stc, rws = self._collect_dp_bt(st_w)
-            problems.wstart[esc] = ws
-            problems.wlen[esc] = wide_probs.wlen
-            best[esc] = b
-            bestcol[esc] = bc
-            startcols[esc] = stc
-            if rows is not None:
-                rows[0][esc] = rws[0]
-                rows[1][esc] = rws[1]
-            for t, i in enumerate(esc.tolist()):
-                ops[i] = op[t]
+            with self.timers.phase("wideFrame"):
+                problems.wstart[esc] = ws
+                problems.wlen[esc] = wide_probs.wlen
+                best[esc] = b
+                bestcol[esc] = bc
+                startcols[esc] = stc
+                if rows is not None:
+                    rows[0][esc] = rws[0]
+                    rows[1][esc] = rws[1]
+                for t, i in enumerate(esc.tolist()):
+                    ops[i] = op[t]
 
         # -D fail streak: after this many consecutive failed extensions
         # the read's remaining problems are abandoned
+        _t_fs = self.timers.phase("failStreak")
+        _t_fs.__enter__()
         P = len(problems)
         minsc_p = minscs[ri_arr]
         dropped = np.zeros(P, bool)
@@ -1354,6 +1379,7 @@ class TorchAligner:
             first_stop = np.minimum.reduceat(sp, starts)
             grp = np.cumsum(rf) - 1
             dropped = pos > first_stop[grp]
+        _t_fs.__exit__(None, None, None)
 
         # valid-scoring candidates, deduped by (read, fw, end col): the max
         # score wins, earliest stream position on ties; groups enter the
@@ -1426,10 +1452,11 @@ class TorchAligner:
                     row_hi=int(rows[0][pi]) if rows is not None else -1,
                 )
         _t_cc.__exit__(None, None, None)
-        # bridge candidates join after the main stream
-        for ri, key, cand in bridge_cands:
-            if key not in cands[ri]:
-                cands[ri][key] = cand
+        if bridge_cands:  # they join after the main stream
+            with self.timers.phase("bridgeCands"):
+                for ri, key, cand in bridge_cands:
+                    if key not in cands[ri]:
+                        cands[ri][key] = cand
         return cands, table
 
     # ---------------- N-bridge DP ----------------
@@ -1474,85 +1501,87 @@ class TorchAligner:
         """DP the bridge problems over N-filled windows in reference
         coordinates; returns [(ri, key, Candidate)] for the endpoints that
         reach the read's minimum score."""
-        rm = self.fm.refmap
-        o = self.opts
-        ws = probs.wstart
-        we = ws + probs.wlen
-        fi_s = np.searchsorted(rm.frag_joined, ws, side="right") - 1
-        fi_e = np.searchsorted(rm.frag_joined, we - 1, side="right") - 1
-        map_lo = rm.frag_ref[fi_s] + (ws - rm.frag_joined[fi_s])
-        map_hi = rm.frag_ref[fi_e] + (we - 1 - rm.frag_joined[fi_e]) + 1
-        # every window is anchored on the fragment of its seed diagonal:
-        # the joined window's other end may lie across a long N run or in
-        # another reference, and such spans are clamped, not dropped (an
-        # alignment cannot bridge more gap chars than its score allows)
-        fi_d = np.clip(np.searchsorted(
-            rm.frag_joined, probs.diag, side="right") - 1, 0, None)
-        rid_d = rm.frag_refid[fi_d].astype(np.int64)
-        ref_diag = rm.frag_ref[fi_d] + (probs.diag - rm.frag_joined[fi_d])
-        mg = mgn_all[probs.ri]
-        ln = self._mat_lens[probs.ri].astype(np.int64)
-        if o.overhang:
-            # the full margins, positions off the reference included
-            # (N-filled by ref_window, soft-clipped at the finish)
-            want_lo = ref_diag - mg
-            want_hi = ref_diag + ln + mg
-        else:
-            want_lo = np.maximum(ref_diag - mg, 0)
-            want_hi = np.minimum(ref_diag + ln + mg, rm.reflens[rid_d])
-        X = BRIDGE_EXTRA_MAX
-        same_s = rm.frag_refid[fi_s] == rid_d
-        same_e = rm.frag_refid[fi_e] == rid_d
-        ref_lo = np.maximum(
-            want_lo - X,
-            np.minimum(np.where(same_s, map_lo, want_lo), want_lo))
-        ref_hi = np.minimum(
-            want_hi + X,
-            np.maximum(np.where(same_e, map_hi, want_hi), want_hi))
-        width = (ref_hi - ref_lo).astype(np.int64)
-        keep = np.flatnonzero(width > 0)
-        if not len(keep):
-            return []
-        kept = probs.take(keep)
-        rdl = self._mat_lens[kept.src // 2].astype(np.int64)
-        n_b = len(keep)
-        C = int(-(-int(width[keep].max()) // 32) * 32)
-        L = self._launch_shape(width[keep], rdl)[1]
-        refs = np.full((n_b, C), 4, np.int8)
-        for t, k in enumerate(keep.tolist()):
-            refs[t, : width[k]] = rm.ref_window(
-                self.text, int(rid_d[k]), int(ref_lo[k]), int(width[k]))
-        kept.wlen = width[keep].astype(np.int32)
+        with self.timers.phase("bridgeFrame"):
+            rm = self.fm.refmap
+            o = self.opts
+            ws = probs.wstart
+            we = ws + probs.wlen
+            fi_s = np.searchsorted(rm.frag_joined, ws, side="right") - 1
+            fi_e = np.searchsorted(rm.frag_joined, we - 1, side="right") - 1
+            map_lo = rm.frag_ref[fi_s] + (ws - rm.frag_joined[fi_s])
+            map_hi = rm.frag_ref[fi_e] + (we - 1 - rm.frag_joined[fi_e]) + 1
+            # every window is anchored on the fragment of its seed diagonal:
+            # the joined window's other end may lie across a long N run or in
+            # another reference, and such spans are clamped, not dropped (an
+            # alignment cannot bridge more gap chars than its score allows)
+            fi_d = np.clip(np.searchsorted(
+                rm.frag_joined, probs.diag, side="right") - 1, 0, None)
+            rid_d = rm.frag_refid[fi_d].astype(np.int64)
+            ref_diag = rm.frag_ref[fi_d] + (probs.diag - rm.frag_joined[fi_d])
+            mg = mgn_all[probs.ri]
+            ln = self._mat_lens[probs.ri].astype(np.int64)
+            if o.overhang:
+                # the full margins, positions off the reference included
+                # (N-filled by ref_window, soft-clipped at the finish)
+                want_lo = ref_diag - mg
+                want_hi = ref_diag + ln + mg
+            else:
+                want_lo = np.maximum(ref_diag - mg, 0)
+                want_hi = np.minimum(ref_diag + ln + mg, rm.reflens[rid_d])
+            X = BRIDGE_EXTRA_MAX
+            same_s = rm.frag_refid[fi_s] == rid_d
+            same_e = rm.frag_refid[fi_e] == rid_d
+            ref_lo = np.maximum(
+                want_lo - X,
+                np.minimum(np.where(same_s, map_lo, want_lo), want_lo))
+            ref_hi = np.minimum(
+                want_hi + X,
+                np.maximum(np.where(same_e, map_hi, want_hi), want_hi))
+            width = (ref_hi - ref_lo).astype(np.int64)
+            keep = np.flatnonzero(width > 0)
+            if not len(keep):
+                return []
+            kept = probs.take(keep)
+            rdl = self._mat_lens[kept.src // 2].astype(np.int64)
+            n_b = len(keep)
+            C = int(-(-int(width[keep].max()) // 32) * 32)
+            L = self._launch_shape(width[keep], rdl)[1]
+            refs = np.full((n_b, C), 4, np.int8)
+            for t, k in enumerate(keep.tolist()):
+                refs[t, : width[k]] = rm.ref_window(
+                    self.text, int(rid_d[k]), int(ref_lo[k]), int(width[k]))
+            kept.wlen = width[keep].astype(np.int32)
         self.metrics.add(dps_bridge=n_b)
         with self.timers.phase("extendDPBridge"):
             best, bestcol, ops, startcol, rows = self._run_dp_bt(
                 kept, cols=C, lmax=L, refs=refs)
-        res = []
-        for t in range(n_b):
-            k = int(keep[t])
-            ri = int(kept.ri[t])
-            if best[t] < minscs[ri]:
-                continue
-            rid = int(rid_d[k])
-            end_ref = int(ref_lo[k]) + int(bestcol[t])
-            # dedupe key: the joined end position where there is one, else
-            # a key in reference space (negative: it cannot collide)
-            jend = rm.ref_to_joined(rid, end_ref - 1)
-            key_end = jend + 1 if jend is not None else -(
-                (rid + 1) << 40) - end_ref
-            fwb = bool(kept.fw[t])
-            cand = Candidate(
-                score=int(best[t]), fw=fwb, endj=key_end,
-                problem=dict(src=int(kept.src[t]), wstart=int(ws[k]),
-                             wlen=int(width[k]), diag=int(probs.diag[k])),
-                bc=int(bestcol[t]), ops_row=ops[t],
-                start_col=int(startcol[t]),
-                bridge=(rid, int(ref_lo[k]), refs[t]),
-                row_lo=int(rows[1][t]) if rows is not None else 0,
-                row_hi=int(rows[0][t]) if rows is not None else -1,
-            )
-            res.append((ri, (fwb, key_end), cand))
-        return res
+        with self.timers.phase("bridgeCands"):
+            res = []
+            for t in range(n_b):
+                k = int(keep[t])
+                ri = int(kept.ri[t])
+                if best[t] < minscs[ri]:
+                    continue
+                rid = int(rid_d[k])
+                end_ref = int(ref_lo[k]) + int(bestcol[t])
+                # dedupe key: the joined end position where there is one, else
+                # a key in reference space (negative: it cannot collide)
+                jend = rm.ref_to_joined(rid, end_ref - 1)
+                key_end = jend + 1 if jend is not None else -(
+                    (rid + 1) << 40) - end_ref
+                fwb = bool(kept.fw[t])
+                cand = Candidate(
+                    score=int(best[t]), fw=fwb, endj=key_end,
+                    problem=dict(src=int(kept.src[t]), wstart=int(ws[k]),
+                                 wlen=int(width[k]), diag=int(probs.diag[k])),
+                    bc=int(bestcol[t]), ops_row=ops[t],
+                    start_col=int(startcol[t]),
+                    bridge=(rid, int(ref_lo[k]), refs[t]),
+                    row_lo=int(rows[1][t]) if rows is not None else 0,
+                    row_hi=int(rows[0][t]) if rows is not None else -1,
+                )
+                res.append((ri, (fwb, key_end), cand))
+            return res
 
     def _finish_bridge(self, c: Candidate) -> None:
         """Finish one bridge candidate in reference space (no joined

@@ -227,11 +227,12 @@ class PairedAligner:
     def _align_pairs(self, pairs) -> list[PairResult]:
         al, o = self.al, self.al.opts
         npairs = len(pairs)
-        reads = []
-        for rd1, rd2 in pairs:
-            reads.extend((rd1, rd2))
-        al.metrics.add(reads=len(reads))
-        minscs = al.min_scores(reads)
+        with al.timers.phase("minScores"):
+            reads = []
+            for rd1, rd2 in pairs:
+                reads.extend((rd1, rd2))
+            al.metrics.add(reads=len(reads))
+            minscs = al.min_scores(reads)
         with al.timers.phase("buildMatrices"):
             al.build_read_matrices(reads)
         # the fork bypasses the up-front N pre-filter (rdlen<256
@@ -257,17 +258,12 @@ class PairedAligner:
         for roundi in range(self.al.opts.nrounds):
             if not unresolved:
                 break
-            active = [i for pi in unresolved for i in (2 * pi, 2 * pi + 1)
-                      if not nfilt[i]]
+            with al.timers.phase("roundSelect"):
+                active = [i for pi in unresolved
+                          for i in (2 * pi, 2 * pi + 1) if not nfilt[i]]
             cands = al.collect_candidates(reads, minscs, active, roundi)
-            for i in active:
-                ban = self._ban[i % 2]
-                for key, c in cands[i].items():
-                    if ban[0 if key[0] else 1]:
-                        continue
-                    cur = acc[i].get(key)
-                    if cur is None or c.score > cur.score:
-                        acc[i][key] = c
+            with al.timers.phase("mergeCands"):
+                self._merge(acc, cands, active)
             unresolved = self._concordance_pass(
                 pairs, unresolved, acc, best_pair, secbest_csc
             )
@@ -276,29 +272,25 @@ class PairedAligner:
             # (averageHitsPerSeed >= thresh) profile
             sb = self.al.opts.seed_boost
             if sb > 0:
-                hn, he = al._hit_nonz, al._hit_elts
-                unresolved = [
-                    pi for pi in unresolved
-                    if any(hn[i] == 0 or he[i] // hn[i] >= sb
-                           for i in (2 * pi, 2 * pi + 1))
-                ]
+                with al.timers.phase("roundSelect"):
+                    hn, he = al._hit_nonz, al._hit_elts
+                    unresolved = [
+                        pi for pi in unresolved
+                        if any(hn[i] == 0 or he[i] // hn[i] >= sb
+                               for i in (2 * pi, 2 * pi + 1))
+                    ]
 
         # half-read-seed rescue round (upstream's do1mmUpFront analog,
         # models/aligner.py _seed_grid roundi=-1): mates of unresolved
         # pairs with NO candidates at all get two exact half seeds
         if unresolved and o.upfront_rescue:
-            need = [i for pi in unresolved for i in (2 * pi, 2 * pi + 1)
-                    if not nfilt[i] and not acc[i]]
+            with al.timers.phase("roundSelect"):
+                need = [i for pi in unresolved for i in (2 * pi, 2 * pi + 1)
+                        if not nfilt[i] and not acc[i]]
             if need:
                 cands = al.collect_candidates(reads, minscs, need, -1)
-                for i in need:
-                    ban = self._ban[i % 2]
-                    for key, c in cands[i].items():
-                        if ban[0 if key[0] else 1]:
-                            continue
-                        cur = acc[i].get(key)
-                        if cur is None or c.score > cur.score:
-                            acc[i][key] = c
+                with al.timers.phase("mergeCands"):
+                    self._merge(acc, cands, need)
                 unresolved = self._concordance_pass(
                     pairs, unresolved, acc, best_pair, secbest_csc
                 )
@@ -320,21 +312,23 @@ class PairedAligner:
                                  [p["wlen"] for p in problems],
                                  [p["wstart"] for p in problems]),
                         cols=self._rescue_cols())
-                for k, (pi, is1, ofw) in enumerate(meta):
-                    other_i = 2 * pi + (1 if is1 else 0)
-                    if best[k] < minscs[other_i]:
-                        continue
-                    endj = problems[k]["wstart"] + int(bestcol[k])
-                    key = (ofw, endj)
-                    cur = acc[other_i].get(key)
-                    if cur is None or int(best[k]) > cur.score:
-                        acc[other_i][key] = Candidate(
-                            score=int(best[k]), fw=ofw, endj=endj,
-                            problem=problems[k], bc=int(bestcol[k]),
-                            ops_row=ops[k], start_col=int(startcols[k]),
-                            row_lo=int(rows[1][k]) if rows else 0,
-                            row_hi=int(rows[0][k]) if rows else -1,
-                        )
+                with al.timers.phase("mergeRescue"):
+                    for k, (pi, is1, ofw) in enumerate(meta):
+                        other_i = 2 * pi + (1 if is1 else 0)
+                        if best[k] < minscs[other_i]:
+                            continue
+                        endj = problems[k]["wstart"] + int(bestcol[k])
+                        key = (ofw, endj)
+                        cur = acc[other_i].get(key)
+                        if cur is None or int(best[k]) > cur.score:
+                            acc[other_i][key] = Candidate(
+                                score=int(best[k]), fw=ofw, endj=endj,
+                                problem=problems[k], bc=int(bestcol[k]),
+                                ops_row=ops[k],
+                                start_col=int(startcols[k]),
+                                row_lo=int(rows[1][k]) if rows else 0,
+                                row_hi=int(rows[0][k]) if rows else -1,
+                            )
                 unresolved = self._concordance_pass(
                     pairs, unresolved, acc, best_pair, secbest_csc
                 )
@@ -364,7 +358,25 @@ class PairedAligner:
                     rd1, rd2, acc[2 * pi], acc[2 * pi + 1],
                     int(minscs[2 * pi]), int(minscs[2 * pi + 1]),
                     bool(nfilt[2 * pi]), bool(nfilt[2 * pi + 1])))
-            return out
+        with al.timers.phase("dropCands"):
+            # the batch's candidates are freed here, under a phase, not
+            # on the way out of the call
+            acc.clear()
+            best_pair.clear()
+        return out
+
+    def _merge(self, acc, cands, idxs) -> None:
+        """A round's candidates into each mate's accumulated ones: a new
+        key, or a higher score than the key's, less the mate's banned
+        orientation."""
+        for i in idxs:
+            ban = self._ban[i % 2]
+            for key, c in cands[i].items():
+                if ban[0 if key[0] else 1]:
+                    continue
+                cur = acc[i].get(key)
+                if cur is None or c.score > cur.score:
+                    acc[i][key] = c
 
     def _concordance_pass(self, pairs, unresolved, acc, best_pair,
                           secbest_csc) -> list:
