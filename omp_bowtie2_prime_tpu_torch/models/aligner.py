@@ -262,6 +262,14 @@ class CandTable:
     def __len__(self):
         return len(self.ri)
 
+    def key(self, t) -> tuple:
+        """Row t's key in a read's candidate dict: (fw, end column), or
+        (fw, diagonal) in local mode (as _extend_and_collect keys it)."""
+        endj = int(self.wstart[t] + self.bc[t])
+        if self.row_hi is not None:
+            endj -= int(self.row_hi[t])
+        return bool(self.fw[t]), endj
+
     def candidate(self, t) -> Candidate:
         return Candidate(
             score=int(self.score[t]), fw=bool(self.fw[t]),
@@ -1716,6 +1724,15 @@ class TorchAligner:
             [c.ops_row for c in cands], start_cols, wstarts, srcs,
             row_los=[c.row_lo for c in cands] if local else None,
             row_his=[c.row_hi for c in cands] if local else None)
+        self._resolve_finished(cands, cig_buf, md_buf, stats, start_cols,
+                               wstarts, srcs)
+
+    def _resolve_finished(self, cands, cig_buf, md_buf, stats, start_cols,
+                          wstarts, srcs) -> None:
+        """Candidates from their rows of the native finisher's output:
+        the place, CIGAR, MD and stats of each that traced an alignment
+        inside one fragment and within nCeil (the Python finish where a
+        row's slot overflowed)."""
         spans = stats[:, 5]
         joined = wstarts + start_cols
         refid, refoff, valid = self.fm.refmap.joined_to_ref_batch(joined, spans)
@@ -1944,28 +1961,40 @@ class TorchAligner:
                 results[ri] = res
             pend = nxt
 
+    def _finish_table(self, table: CandTable, rows=None):
+        """Native finish of a CandTable's rows (every row, or those of
+        ``rows``): (cig_buf, md_buf, stats, refid, refoff, ok), ok where
+        a row traced an alignment inside one fragment and within nCeil,
+        its slot not overflowed (stats[:, 6] < 0 there)."""
+        t = slice(None) if rows is None else rows
+        start_cols = table.start_col[t].astype(np.int32)
+        wstarts, srcs = table.wstart[t], table.src[t]
+        cig_buf, md_buf, stats = self._native_finish(
+            table.ops if rows is None
+            else [table.ops[i] for i in rows.tolist()],
+            start_cols, wstarts, srcs,
+            row_los=None if table.row_lo is None else table.row_lo[t],
+            row_his=None if table.row_hi is None else table.row_hi[t])
+        self.metrics.add(backtraces=len(srcs))
+        refid, refoff, valid = self.fm.refmap.joined_to_ref_batch(
+            wstarts + start_cols, stats[:, 5])
+        ok = valid & (stats[:, 6] > 0)
+        lens = self._mat_lens[srcs >> 1]
+        ns = stats[:, 8]
+        for k in np.flatnonzero(ok & (ns > 0)).tolist():
+            if ns[k] > self.sc.n_ceil_for(int(lens[k])):
+                ok[k] = False
+        return cig_buf, md_buf, stats, refid, refoff, ok
+
     def _finalize_singles_table(self, minscs, table, results) -> None:
         """Columnar finish of single-candidate reads: native CIGAR/MD/
         stats from the table's arrays, vectorized validity and nCeil
         filters, one emission loop."""
         o = self.opts
-        m = len(table)
-        cig_buf, md_buf, stats = self._native_finish(
-            table.ops, table.start_col.astype(np.int32), table.wstart,
-            table.src, row_los=table.row_lo, row_his=table.row_hi)
-        self.metrics.add(backtraces=m)
-        joined = table.wstart + table.start_col
-        refid, refoff, valid = self.fm.refmap.joined_to_ref_batch(
-            joined, stats[:, 5])
-        ciglen = stats[:, 6]
-        ovf = np.flatnonzero(ciglen < 0)  # slot overflow: object path
-        okm = valid & (ciglen > 0)
-        okm[ovf] = False
+        cig_buf, md_buf, stats, refid, refoff, okm = self._finish_table(
+            table)
+        ovf = np.flatnonzero(stats[:, 6] < 0)  # slot overflow: object path
         lens_t = self._mat_lens[table.src >> 1]
-        ns = stats[:, 8]
-        for t in np.flatnonzero(okm & (ns > 0)).tolist():
-            if ns[t] > self.sc.n_ceil_for(int(lens_t[t])):
-                okm[t] = False
         multi = o.allhits or o.khits > 1
         mins_a = np.asarray(minscs, np.int64)
         bonus = self.sc.match_bonus

@@ -57,13 +57,18 @@ def _mutate(rng, s, k):
         s[m] = (s[m] + 1 + rng.integers(0, 3)) % 4
 
 
-def make_pairs(seed=8, n=N_PAIRS):
+def make_pairs(seed=8, n=N_PAIRS, repeats=False):
     """Two sequences (40 and 12 kbp) and n pairs: (name, mate 1, quals,
-    mate 2, quals, kind, mate 1's origin, fragment length)."""
+    mate 2, quals, kind, mate 1's origin, fragment length). ``repeats``
+    plants a repeat family: 2 kbp of the first sequence copied twice
+    more into it, so that a mate inside a copy has three candidates."""
     rng = np.random.default_rng(seed)
     seqs = [rng.integers(0, 4, 40_000).astype(np.int8),
             rng.integers(0, 4, 12_000).astype(np.int8)]
     a = seqs[0]
+    if repeats:
+        a[20_000:22_000] = a[6_000:8_000]
+        a[31_000:33_000] = a[6_000:8_000]
     pairs = []
     for i in range(n):
         kind = i % 20
@@ -147,14 +152,23 @@ def write_inputs(wd, seqs, pairs):
         f.close()
 
 
-@pytest.fixture(scope="module")
-def pe_data(tmp_path_factory):
+def _pe_data(tmp_path_factory, **kw):
     wd = str(tmp_path_factory.mktemp("paired"))
-    seqs, pairs = make_pairs()
+    seqs, pairs = make_pairs(**kw)
     write_inputs(wd, seqs, pairs)
     idx = os.path.join(wd, "idx.npz")
     tcli.main(["build", os.path.join(wd, "g.fa"), idx])
     return wd, idx, seqs, pairs
+
+
+@pytest.fixture(scope="module")
+def pe_data(tmp_path_factory):
+    return _pe_data(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def pe_repeat_data(tmp_path_factory):
+    return _pe_data(tmp_path_factory, repeats=True)
 
 
 # ---------------- PairedAligner.align_pairs, in process -----------------
@@ -181,14 +195,38 @@ _CASES = {  # AlignOpts fields
     "e2e": {}, "local": dict(local=True), "nofw": dict(nofw=True),
     "norc seed3 no-upfront": dict(norc=True, rng_seed=3,
                                   upfront_rescue=False),
+    "repeats": {},  # on pe_repeat_data's genome
 }
 
 
+def _round0_counts(tal):
+    """Spies on round 0 of each align call: the candidates of every read
+    (its dict's, or 1 for a row of the pair table's CandTable)."""
+    seen = []
+    orig = tal.collect_candidates
+
+    def spy(reads, minscs, active, roundi, **kw):
+        got = orig(reads, minscs, active, roundi, **kw)
+        if roundi == 0:
+            cands, table = got
+            n = np.array([len(c) for c in cands])
+            if table is not None:
+                n[table.ri] += 1
+            seen.append(n)
+        return got
+
+    tal.collect_candidates = spy
+    return seen
+
+
 @pytest.mark.parametrize("case", list(_CASES))
-def test_align_pairs_match_jax(pe_data, case):
+def test_align_pairs_match_jax(request, case):
     """Every PairResult field of the port's PairedAligner equals the JAX
-    package's, and the planted kinds come out as planted."""
-    _wd, idx, _seqs, pairs = pe_data
+    package's, and the planted kinds come out as planted. On a genome
+    with a repeat family, pairs whose mates have one candidate each (the
+    pair table's), one and several, and several each meet in one call."""
+    _wd, idx, _seqs, pairs = request.getfixturevalue(
+        "pe_repeat_data" if case == "repeats" else "pe_data")
     okw = _CASES[case]
     local = okw.get("local", False)
     jsc = (JScoring(match_bonus=2, score_min=JSimpleFunc.parse("G,20,8"))
@@ -201,8 +239,14 @@ def test_align_pairs_match_jax(pe_data, case):
     jres = JPaired(jal).align_pairs(_reads(pairs, JRead))
     pal = PairedAligner(tal)
     assert not (tal.opts.nofw or tal.opts.norc)  # bans moved to PairedAligner
+    seen = _round0_counts(tal)
     tres = pal.align_pairs(_reads(pairs, Read))
     assert [pair_key(p) for p in tres] == [pair_key(p) for p in jres]
+    if case == "repeats":
+        ncand = seen[0].reshape(-1, 2)
+        kinds = {(min(m), max(m)) for m in np.minimum(ncand, 2).tolist()}
+        assert {(1, 1), (1, 2), (2, 2)} <= kinds
+        return
 
     cats = {}
     for (_n, _s1, _q1, _s2, _q2, kind, pos, frag), p in zip(pairs, tres):
@@ -251,6 +295,83 @@ def test_rescue_runs_at_the_wide_shape(pe_data):
     assert all(p.cat == "concord" for p in res)
     assert (640, None, tal.metrics.dps_rescue) in seen
     assert tal.metrics.dps_rescue >= len(rescue)
+
+
+def test_pair_table_counter(pe_data):
+    """Each align call writes count.pair_table (pairs finished on the
+    pair table, pairs) while the timers are on: some of the plain pairs,
+    none of the discordant ones (mates 2-20 kb apart, or on two
+    sequences), which the object path finishes."""
+    _wd, idx, _seqs, pairs = pe_data
+    tal = TorchAligner(FMIndex.load(idx), device="cpu")
+    pal = PairedAligner(tal)
+    plain = [p for p in pairs if p[5] < RESCUE1]
+    far = [p for p in pairs if p[5] in (FAR, CROSS)]
+    pal.align_pairs(_reads(plain, Read))
+    assert not tal.timers.spans  # off: no record
+    tal.timers.on = True
+    try:
+        pal.align_pairs(_reads(plain, Read))
+        res = pal.align_pairs(_reads(far, Read))
+    finally:
+        tal.timers.on = False
+    recs = [s[4:] for s in tal.timers.spans if s[0] == "count.pair_table"]
+    assert len(recs) == 2
+    assert 0 < recs[0][0] <= recs[0][1] == len(plain)
+    assert recs[1] == (0, len(far))
+    assert all(p.cat == "discord" for p in res)
+
+
+def test_single_candidates_not_concordant_reach_rescue(tmp_path):
+    """Pairs whose mates have one candidate each, not concordant: mate 2
+    matches a decoy exactly (upstream of mate 1, inside the pairing
+    window, or 1.5 kb away) while its origin has every exact seed broken.
+    They leave the pair table for the object path, and with the
+    --seed-boost gate off (0: a pair whose mates both hit re-seeds too)
+    mate rescue finds the origin: the JAX package's PairResults, all
+    concordant."""
+    rng = np.random.default_rng(31)
+    a = rng.integers(0, 4, 30_000).astype(np.int8)
+    spec, origin = [], []
+    for j in range(6):
+        pos, frag = 2_000 + 4_000 * j, 350
+        s1 = a[pos : pos + 150].copy()
+        s2 = dna.revcomp(a[pos + frag - 150 : pos + frag])
+        q2 = np.full(150, 2, np.uint8)
+        if j < 4:  # a planted pair: the decoy
+            s2[6::13] = (s2[6::13] + 1) % 4
+            d = pos - 400 if j % 2 else pos + 1_500
+            a[d : d + 150] = dna.revcomp(s2)
+        else:  # a plain pair
+            q2[:] = 30
+        spec.append((f"d{j}", s1, np.full(150, 30, np.uint8), s2, q2))
+        origin.append(pos + frag - 150)
+    with open(tmp_path / "g.fa", "w") as f:
+        f.write(">c\n" + dna.decode(a) + "\n")
+    idx = str(tmp_path / "idx.npz")
+    tcli.main(["build", str(tmp_path / "g.fa"), idx])
+
+    def reads(cls):
+        return [(cls(i, n, s1, q1.copy()), cls(i, n, s2, q2.copy()))
+                for i, (n, s1, q1, s2, q2) in enumerate(spec)]
+
+    jres = JPaired(TPUAligner(JFMIndex.load(idx), opts=JOpts(
+        seed_boost=0))).align_pairs(reads(JRead))
+    tal = TorchAligner(FMIndex.load(idx), opts=AlignOpts(seed_boost=0),
+                       device="cpu")
+    seen = _round0_counts(tal)
+    tal.timers.on = True
+    try:
+        tres = PairedAligner(tal).align_pairs(reads(Read))
+    finally:
+        tal.timers.on = False
+    assert [pair_key(p) for p in tres] == [pair_key(p) for p in jres]
+    assert seen[0].tolist() == [1] * 12  # every mate one candidate
+    recs = [s[4:] for s in tal.timers.spans if s[0] == "count.pair_table"]
+    assert recs == [(2, 6)]  # the plain pairs alone
+    assert tal.metrics.dps_rescue > 0
+    assert all(p.cat == "concord" for p in tres)
+    assert [p.m2.refoff for p in tres] == origin
 
 
 def test_engine_refuses_nofw_norc(pe_data):
@@ -334,6 +455,7 @@ def test_paired_sam_byte_identical(pe_data, kind, flags, seed):
     ("--no-mixed", "--no-discordant", "-I", "400"),
     ("--dovetail", "--no-contain"),
     ("--local", "--dovetail", "--no-overlap", "-X", "250"),
+    ("-k", "2"), ("-a",),
 ], ids=lambda f: "_".join(f))
 def test_paired_flags_sam_byte_identical(pe_data, flags):
     wd, _idx, _seqs, _pairs = pe_data

@@ -194,7 +194,7 @@ def test_results_survive_pickling():
             for i, p in enumerate((100, 2000, 4000))]
     pairs = workers.pair_reads(spec, Read)
     res = PairedAligner(TorchAligner(fm, device="cpu")).align_pairs(pairs)
-    res[0].extras.append((res[1].m1, res[1].m2, 7, -7))
+    res[0].extras = [(res[1].m1, res[1].m2, 7, -7)]
     assert all(r.cat == "concord" for r in res)
     assert any(isinstance(r.m1.stats, LazyStats) for r in res)
     back = pickle.loads(pickle.dumps(res))
