@@ -179,6 +179,43 @@ class AlnResult(_LazyCigar):
         self.filt = filt
 
 
+def _end_clips(a) -> int:
+    """The soft-clipped bases of a record: its CIGAR's first and last
+    operations where they are ``S`` (a clip is only ever at an end)."""
+    c = a._cigar
+    if c is not None:
+        return ((c[0][1] if c[0][0] == "S" else 0)
+                + (c[-1][1] if len(c) > 1 and c[-1][0] == "S" else 0))
+    s = a.cigar_str
+    n = 0
+    if s.endswith("S"):
+        head = s[:-1].rstrip("0123456789")
+        n = int(s[len(head):-1])
+        s = head
+    lead = s.lstrip("0123456789")
+    if lead.startswith("S"):
+        n += int(s[:len(s) - len(lead)])
+    return n
+
+
+def softclip_bases(items, results, clips: bool) -> tuple[int, int]:
+    """(soft-clipped bases, read bases) over the aligned primary records
+    of an align call: ``items`` its reads (or pairs of reads), ``results``
+    their ``AlnResult``s (or ``PairResult``s). Read bases are the reads'
+    lengths; clips are counted only where the mode makes them
+    (``clips``: ``--local`` or ``--overhang``), else 0; anything else
+    counts nothing."""
+    clip = bases = 0
+    for it, r in zip(items, results):
+        for rd, a in (((it[0], r.m1), (it[1], r.m2)) if hasattr(r, "m1")
+                      else ((it, r),)):
+            if getattr(a, "status", None) == "aligned":
+                bases += len(rd.seq)
+                if clips:
+                    clip += _end_clips(a)
+    return clip, bases
+
+
 class Candidate(_LazyCigar):
     """A scored DP endpoint of one read: a distinct (fw, joined end col),
     or (fw, diagonal) in local mode."""
@@ -892,22 +929,33 @@ class TorchAligner:
         no collective), the blocks' results gathered so that every rank
         returns the whole batch's in input order (timed ``dataGather``).
         ``align_batch`` and ``PairedAligner.align_pairs`` both run
-        through it. While the timers are on, the batch's wall and this
-        thread's CPU seconds are recorded (``count.align_cpu``)."""
-        pl, tm = self.placer, self.timers
-        with (tm.thread_cpu("count.align_cpu", len(items)) if tm.on
-              else contextlib.nullcontext()):
-            if pl is None:
-                with self._on_stream():
-                    return fn(items)
-            wait_turn()
-            with pl.lock, self._on_stream():
-                if pl.n_data == 1:
-                    return fn(items)
-                mine = pl.put_batch(items)
-                part = fn(mine) if len(mine) else []
-                with self.timers.phase("dataGather"):
-                    return pl.gather_batch(part)
+        through it. While the timers are on, the soft clips of the
+        results (``count.softclip``: ``softclip_bases`` of what the call
+        returns) and the batch's wall and this thread's CPU seconds
+        (``count.align_cpu``, around both) are recorded."""
+        tm = self.timers
+        if not tm.on:
+            return self._mesh_call(items, fn)
+        with tm.thread_cpu("count.align_cpu", len(items)):
+            out = self._mesh_call(items, fn)
+            o = self.opts
+            tm.count("count.softclip", *softclip_bases(
+                items, out, o.local or o.overhang))
+        return out
+
+    def _mesh_call(self, items, fn):
+        pl = self.placer
+        if pl is None:
+            with self._on_stream():
+                return fn(items)
+        wait_turn()
+        with pl.lock, self._on_stream():
+            if pl.n_data == 1:
+                return fn(items)
+            mine = pl.put_batch(items)
+            part = fn(mine) if len(mine) else []
+            with self.timers.phase("dataGather"):
+                return pl.gather_batch(part)
 
     def _align_batch(self, reads, prebuilt, predisp, minscs, next_cb):
         n = len(reads)

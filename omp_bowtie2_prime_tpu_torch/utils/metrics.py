@@ -17,11 +17,12 @@ and the thread (``threading.get_ident``):
     the interpreter lock, so its spans nest in the phases open around
     them;
   * (name, t, t, thread, *values): a count, zero-length, where the work
-    is done: ``count.align_cpu`` (wall s, CPU s of the thread, items) at
-    the end of each batch of an aligner's align call, ``count.seed_round``
-    (1 on the host path, 0 on the device grid) for each seed round,
-    ``count.dp_problems`` (problems) for each problem list handed to the
-    DP kernel.
+    is done: ``count.softclip`` (soft-clipped bases, read bases of its
+    aligned primary records) and then ``count.align_cpu`` (wall s, CPU s
+    of the thread, items) at the end of each batch of an aligner's align
+    call, ``count.seed_round`` (1 on the host path, 0 on the
+    device grid) for each seed round, ``count.dp_problems`` (problems)
+    for each problem list handed to the DP kernel.
 
 Off, nothing is recorded and no hook is installed.
 """

@@ -3,9 +3,9 @@ CPU: the collector's spans (nested in the phase open around them, one
 ``gc.callbacks`` entry however many timers are on, none once off), the
 align call's wall against its thread's CPU, the counts of seed rounds
 (device grid or host path) and of DP problems against
-``PipelineMetrics``, the benchmark's subclass of the timers receiving
-the records through its ``on``, and ``-t``'s report. Off, nothing is
-recorded."""
+``PipelineMetrics``, the soft clips of each align call's records, the
+benchmark's subclass of the timers receiving the records through its
+``on``, and ``-t``'s report. Off, nothing is recorded."""
 
 import gc
 import importlib.util
@@ -23,10 +23,12 @@ from omp_bowtie2_prime_tpu_torch import cli as tcli
 from omp_bowtie2_prime_tpu_torch.index.builder import build_index_from_text
 from omp_bowtie2_prime_tpu_torch.index.fasta import join_references
 from omp_bowtie2_prime_tpu_torch.io.fastq import Read
-from omp_bowtie2_prime_tpu_torch.models.aligner import TorchAligner
+from omp_bowtie2_prime_tpu_torch.models.aligner import (AlignOpts,
+                                                        TorchAligner)
 from omp_bowtie2_prime_tpu_torch.models.paired import PairedAligner
 from omp_bowtie2_prime_tpu_torch.utils import dna
 from omp_bowtie2_prime_tpu_torch.utils.metrics import PhaseTimers
+from omp_bowtie2_prime_tpu_torch.utils.scoring import Scoring, SimpleFunc
 
 torch.set_num_threads(1)  # several pytest workers share the host
 
@@ -195,6 +197,37 @@ def test_rounds_and_dp_problems_are_counted(tiny, monkeypatch, path,
     # every record but the phases and the collections has no length
     for s in al.timers.spans:
         assert s[0] == "gc" or len(s) == 4 or s[1] == s[2]
+
+
+def test_softclip_counted_once_an_align_call_while_on(tiny):
+    """count.softclip (clipped bases, read bases of the aligned primary
+    records) at the end of every align call while on, unpaired and
+    paired: in local mode, reads whose first 12 bases are damaged come
+    out clipped by at least that; none while off."""
+    fm, reads, pairs = tiny
+    al = TorchAligner(fm, Scoring(match_bonus=2,
+                                  score_min=SimpleFunc.parse("G,20,8")),
+                      AlignOpts(local=True), device="cpu")
+    pal = PairedAligner(al)
+    damaged = [Read(0, r.name, r.seq.copy(), r.qual) for r in reads[1:9]]
+    for r in damaged:
+        r.seq[:12] = (r.seq[:12] + 1) % 4
+    al.timers.on = True
+    res = [al.align_batch(damaged), pal.align_pairs(pairs[:4]),
+           al.align_batch(reads[11:15])]
+    al.timers.on = False
+    al.align_batch(damaged)
+    pal.align_pairs(pairs[:4])
+    recs = _names(al.timers, "count.softclip")
+    assert len(recs) == 3 == len(_names(al.timers, "count.align_cpu"))
+    mates = [res[0], [m for p in res[1] for m in (p.m1, p.m2)], res[2]]
+    for rec, got in zip(recs, mates):
+        assert len(rec) == 6 and rec[1] == rec[2]
+        aligned = [r for r in got if r.status == "aligned"]
+        assert rec[5] == 150 * len(aligned) > 0
+        assert rec[4] == sum(n for r in aligned for op, n in r.cigar
+                             if op == "S")
+    assert recs[0][4] >= 12 * len(res[0]) and recs[2][4] == 0
 
 
 def test_off_records_nothing(tiny):
